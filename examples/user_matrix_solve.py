@@ -5,11 +5,11 @@ A user of the reference assembles an AIJ matrix with
 the KSP/multisplitting drivers.  Here the same journey from a
 ``scipy.sparse`` matrix:
 
-1. ``from_scipy`` routes the pattern to the TPU-efficient operator
-   (banded -> DIA slices, blockable -> BSR sub-block matmuls, else
-   gather-ELL with a warning);
+1. ``from_scipy`` routes the pattern to a device-efficient operator
+   (banded -> DIA slices, blockable -> BSR sub-block matmuls, small ->
+   dense, else the routed-gather AIJ);
 2. whole-system GMRES, optionally right-preconditioned with block-Jacobi
-   (batched dense block inverses on the MXU — the PCBJACOBI analog);
+   (batched dense block inverses — the PCBJACOBI analog);
 3. the same matrix through the two-stage multisplitting drivers with
    inner block-Jacobi (``--inner-pc-type bjacobi``);
 4. the one-call forms: ``solve(A, b)`` (assemble -> KSPSolve collapsed)
@@ -67,7 +67,7 @@ def main():
     n = A.shape[0]
     b = np.asarray(A @ np.ones(n))          # exact solution u = 1
 
-    # 1. route the pattern to the TPU-efficient operator
+    # 1. route the pattern to a device-efficient operator
     op = from_scipy(A, dtype=jnp.float32)
     print(f"routed {n}x{n} ({A.nnz} nnz) -> {type(op).__name__}")
 

@@ -1,6 +1,6 @@
-"""TPU-native two-stage multisplitting sparse linear-algebra framework.
+"""Two-stage multisplitting sparse linear-algebra framework (JAX/XLA).
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 ``craftman22/medane_tchakorom_ufc_thesis_repository`` (synchronous and
 asynchronous two-stage multisplitting methods with Krylov minimization
 acceleration for large sparse systems from 2D/3D Poisson PDEs).
@@ -11,7 +11,8 @@ Design stance (not a PETSc port):
   * solvers are pure functions under ``jax.lax.while_loop`` / ``scan``
   * block parallelism is a ``jax.sharding.Mesh`` with axes ``('block','intra')``;
     halo exchange is ``ppermute``, norm reductions are ``psum``
-  * hot kernels (stencil SpMV, fused Krylov reductions) have Pallas TPU paths
+  * device work is plain ``jax.numpy``/``lax`` left to XLA (no
+    hand-written kernels); the accelerator is an NVIDIA GPU
 
 Reference layer map: see SURVEY.md at the repo root.
 """

@@ -1,24 +1,23 @@
 """Routing-constant calibration store (autotuned thresholds).
 
 The operator-routing cost model (``core.operators``: BSR block-size
-penalties, the gather-ELL cost bar, the dense-route cutoff) ships with
-constants MEASURED on TPU v5e (BENCHMARKS.md format table).  Relative
-costs shift across chip generations — the lane-padding penalty of small
-BSR blocks, gather throughput, and the dense crossover are all
-microarchitectural.  ``utils.calibrate`` re-measures them on the current
-device with the repo-standard barriered-slope method and saves a JSON;
-this module loads that file (per device kind) and serves the constants
-to the routing code, falling back to the shipped v5e table.
+penalties, the gather-ELL cost bar, the AIJ cost bar, the dense-route
+cutoff) ships with constants measured on an NVIDIA H100.  Relative costs
+shift across devices — gather throughput, small-block efficiency and the
+dense crossover are all microarchitectural.  ``utils.calibrate``
+re-measures them on the current device and saves a JSON; this module
+loads that file (per device kind) and serves the constants to the
+routing code, falling back to the shipped table.
 
 This replaces nothing in the reference — PETSc's AIJ has one format and
-no routing — it is the knob SURVEY §7.2's "measure nnz/s per chip from
+no routing — it is the knob SURVEY §7.2's "measure nnz/s per device from
 day one" stance implies once more than one representation competes.
 
 Lookup order:
-  1. ``MEDANE_TPU_CALIBRATION`` env var (explicit file path),
+  1. ``MEDANE_CALIBRATION`` env var (explicit file path),
   2. ``$XDG_CACHE_HOME/medane_tchakorom_ufc_thesis_repository_tpu/
      calibration-<device_kind>.json``,
-  3. shipped v5e constants.
+  3. the shipped constants.
 """
 
 from __future__ import annotations
@@ -39,53 +38,37 @@ __all__ = [
     "save",
 ]
 
-# measured on TPU v5e, barriered-slope (BENCHMARKS.md):
-#   * bsr_bs_penalty: per-stored-value SpMV cost relative to bs=128
-#     (187/164/130/63/21 Gnnz/s for bs=128/16/32/64/8 — bs=8 pads the
-#     (8,128) lane tiling 16x; the bs=64 dip reproduced across runs)
-#   * ell_relative_cost: gather-ELL SpMV per-nonzero cost relative to
-#     the slice (DIA/stencil) paths — the bar any other representation
-#     must beat before gather-ELL is the honest answer.  Round-3
-#     re-measurement: the earlier 139x used a round-1 DIA timing that
-#     was harness-limited; steady-state chained DIA is 0.080 ms at
-#     2048² vs 157 ms gather-ELL = 1957x (3500x at 1024² where DIA is
-#     VMEM-resident; at 4096² ELL cannot even COMPILE — the (n, w)
-#     gather's 25.6x-padded select OOMs HBM).  1950 is the
-#     HBM-streaming value.  Practical consequence: gather-ELL survives
-#     routing only when every alternative is memory-capped.
-#   * max_dense_n: largest n routed to a dense MXU matvec (dense beat
-#     gather-ELL at every density tested up to this size; above it the
-#     n^2 storage dominates — 64 MB f32 at the cutoff)
+# ``python -m ...utils.calibrate`` on an NVIDIA H100 80GB HBM3 with a
+# 400 W power limit (barriered-slope timing):
+#   * bsr_bs_penalty: per-stored-value BSR SpMV cost relative to the best
+#     block size (552/566/548/592/621 Gval/s for bs=8/16/32/64/128 at a
+#     33.6M stored-value budget);
+#   * ell_relative_cost: gather-ELL SpMV per-nonzero cost relative to DIA
+#     on the same banded 2048^2 matrix (0.189 vs 0.059 ms);
 #   * aij_relative_cost: Clos-routed AIJ SpMV per-nonzero cost relative
-#     to the slice paths (round-5 on-chip, wide 8-block kernels:
-#     0.071 ms at n=65536 d=10 random structureless = 11.1x the
-#     values-read roofline, chained-slope).  Pattern-independent by
-#     construction — replaces ell_relative_cost as the unstructured
-#     routing bar (gather-ELL is retired from routing; its constant is
-#     kept for the format table and tests).
+#     to the same DIA baseline (random structureless n=65536, 0.7M nnz:
+#     0.067 ms) — the bar a high-fill BSR must undercut before it beats
+#     AIJ;
+#   * max_dense_n: largest tested n where the dense matvec beat gather-ELL
+#     on a 1%-density random matrix (2048; ELL won at 4096).
 SHIPPED = {
-    "bsr_bs_penalty": {8: 8.0, 16: 1.3, 32: 1.5, 64: 3.0, 128: 1.0,
-                       256: 2.5},
-    "ell_relative_cost": 1950.0,
-    "aij_relative_cost": 12.0,
-    "max_dense_n": 4096,
+    "bsr_bs_penalty": {8: 1.13, 16: 1.1, 32: 1.13, 64: 1.05, 128: 1.0},
+    "ell_relative_cost": 3.2,
+    "aij_relative_cost": 36.2,
+    "max_dense_n": 2048,
 }
 
 _loaded = None
 
 
 def _device_kind() -> str:
-    try:
-        import jax
+    import jax
 
-        return jax.devices()[0].device_kind.replace(" ", "_").replace(
-            "/", "_")
-    except Exception:  # backend init can fail in exotic envs — shipped
-        return "unknown"  # constants still apply
+    return jax.devices()[0].device_kind.replace(" ", "_").replace("/", "_")
 
 
 def calibration_path(kind: str | None = None) -> str:
-    env = os.environ.get("MEDANE_TPU_CALIBRATION")
+    env = os.environ.get("MEDANE_CALIBRATION")
     if env:
         return env
     base = os.environ.get("XDG_CACHE_HOME",

@@ -11,21 +11,20 @@ Representations
 ---------------
 ``Stencil2D`` / ``Stencil3D``
     Matrix-free constant-coefficient 5/7-point Poisson stencils — the
-    fastest TPU path (no index gathers; XLA fuses the shifted adds).
+    fastest path (no index gathers; XLA fuses the shifted adds).
 ``ELL``
     ELLPACK padded sparse: row-major ``(n, width)`` column-index and value
     planes.  The general path; Poisson rows have <= 5 (2D) / 7 (3D)
     nonzeros so padding waste is tiny.  SpMV is a gather + small reduction.
 ``DIA``
     Diagonal format for banded matrices: SpMV is shifted slices, no
-    gathers — the TPU-fast general path (``as_tpu_operator`` routes
+    gathers — the fast general path (``as_device_operator`` routes
     banded ELL here).
 ``BSR``
     Block-sparse rows (block-ELL): dense ``(bs, bs)`` sub-blocks, SpMV is
     block-row gathers + batched sub-block matvecs, ``rmv`` via a
-    transpose pack — the TPU path for genuinely unstructured sparsity
-    with block structure (2-5x off DIA per stored value vs gather-ELL's
-    ~2000x steady-state; BENCHMARKS.md round-3 re-measurement).
+    transpose pack — the path for genuinely unstructured sparsity with
+    block structure.
 ``DenseOp``
     Thin wrapper over a dense matrix, for tests and tall-skinny blocks.
 
@@ -106,10 +105,9 @@ class ELL:
         return rows[keep], cols[keep], vals[keep]
 
     def to_dia(self) -> "DIA":
-        """Convert to DIA.  On TPU the gather-based ELL matvec is ~100x
-        slower than DIA's shifted adds (measured 39 ms vs 0.4 ms at
-        1024^2 on v5e) — any matrix whose distinct-diagonal count is
-        modest should run as DIA."""
+        """Convert to DIA: shifted adds instead of an index gather per
+        nonzero — any matrix whose distinct-diagonal count is modest
+        should run as DIA."""
         if self.shape[0] != self.ncols:
             raise ValueError("DIA requires a square matrix")
         rows, cols, vals = self.to_coo_np()
@@ -139,14 +137,10 @@ class DenseOp:
     """Dense matrix operator (small unstructured/rectangular route,
     tall-skinny R blocks).
 
-    The matvecs pin ``precision=HIGHEST`` as a guard: TPU default
-    matmul precision truncates f32 OPERANDS to bf16 (~1e-2) wherever a
-    contraction lands on the MXU — the CLAUDE.md-documented trap that
-    stalls Krylov solves, invisible to the CPU (f64) suite.  Measured
-    on v5e the matVEC results are bit-identical either way (XLA lowers
-    (n,n)@(n,) to VPU reductions at these sizes), and the op is
-    bandwidth-bound, so HIGHEST costs nothing and keeps the operator
-    safe if XLA ever re-tiles it onto the MXU (batched/vmapped uses)."""
+    The matvecs pin ``precision=HIGHEST``: an unpinned f32 contraction
+    may run in TF32 on the GPU (about three decimal digits), which
+    stalls Krylov solves and is invisible to the CPU (f64) suite.  The
+    op is bandwidth-bound, so the pin costs nothing."""
 
     a: jax.Array
 
@@ -200,42 +194,18 @@ class Stencil2D:
         return 5 * m * n - 2 * m - 2 * n
 
     def mv(self, x):
-        # pad+slice formulation: XLA/TPU fuses this into one bandwidth-
-        # bound pass (measured 5.5x faster than the .at[].add form, which
-        # lowers to poorly-fused dynamic-update-slices on TPU).
-        # Shape-polymorphic: flat (m*n,) or grid (m, n) in -> same shape
-        # out; grid-shaped callers skip the flat<->tiled relayout copy.
-        # HBM-scale grids (>100 MB, e.g. the reference's 8192^2 sweep
-        # envelope) route to the windowed-DMA Pallas kernel when Mosaic
-        # is available (see Stencil3D.mv).
+        # pad+slice formulation: XLA fuses the pad, the four shifted
+        # reads and the combine into one bandwidth-bound loop (the
+        # ``.at[].add`` chain lowers to a sequence of dynamic-update-
+        # slices instead).  Shape-polymorphic: flat (m*n,) or grid
+        # (m, n) in -> same shape out.
         m, n = self.m, self.n
         g = x if x.ndim == 2 else x.reshape(m, n)
-        if g.size * jnp.dtype(g.dtype).itemsize > _VMEM_RESIDENT_BYTES:
-            y = self._pallas_mv(g)
-            if y is not None:
-                return y if x.ndim == 2 else y.reshape(-1)
         p = jnp.pad(g, 1)
         y = self.diag * g + self.off * (
             p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:]
         )
         return y if x.ndim == 2 else y.reshape(-1)
-
-    def _pallas_mv(self, g):
-        if jnp.dtype(g.dtype) != jnp.dtype(jnp.float32):
-            return None
-        from medane_tchakorom_ufc_thesis_repository_tpu.ops import (
-            fused_pallas,
-            stencil_pallas,
-        )
-
-        if self.m % 8:  # 8-row halo-block DMA alignment
-            return None
-        if self.n % 128:  # lane dim must be whole 128-lane tiles (see
-            return None   # Stencil3D._pallas_route_ok)
-        if not fused_pallas.pallas_enabled():
-            return None
-        return stencil_pallas.stencil2d_mv_pallas(
-            g, m=self.m, n=self.n, diag=self.diag, off=self.off)
 
     rmv = mv  # symmetric
 
@@ -250,28 +220,15 @@ class Stencil2D:
 _register(Stencil2D, [], ["m", "n", "diag", "off"])
 
 
-# VMEM-residency cutoff for the whole-array pad+slice stencil form (v5e
-# has 128 MiB VMEM; past this the slab loop wins — see Stencil3D.mv)
-_VMEM_RESIDENT_BYTES = 100 * 2**20
-
-
-def _slab_planes(nx: int, plane_bytes: int, target_bytes: int = 32 * 2**20):
-    """Largest divisor of ``nx`` whose slab stays under ~32 MB (the
-    empirically fastest slab size at 512^3: big enough to amortize the
-    per-slab pad, small enough for VMEM-scoped partial sums)."""
-    target = max(1, target_bytes // max(plane_bytes, 1))
-    best = 1
-    for d in range(1, nx + 1):
-        if nx % d == 0 and d <= target:
-            best = d
-    return best
-
-
 @dataclasses.dataclass(frozen=True)
 class Stencil3D:
     """Matrix-free 3D 7-point Poisson operator (diag 6, off -1) — the
-    TPU-native analog of ``poisson3DMatrix`` (reference ``utils.c:30-121``).
-    Unknown order: ``x[ix, iy, iz]`` flattened C-style."""
+    matrix-free analog of ``poisson3DMatrix`` (reference ``utils.c:30-121``).
+    Unknown order: ``x[ix, iy, iz]`` flattened C-style.
+
+    Every method is one pad+slice stencil expression with its elementwise
+    epilogue (and, for the ``*_dot`` forms, its reduction) written beside
+    it, so XLA compiles each into one fused pass over the operands."""
 
     nx: int
     ny: int
@@ -290,389 +247,61 @@ class Stencil3D:
         size = nx * ny * nz
         return 7 * size - 2 * (nx * ny + ny * nz + nx * nz)
 
-    def mv(self, x, in_place: bool = False):
-        """Shape-polymorphic apply: accepts the flat ``(nx*ny*nz,)`` vector
-        or the grid-shaped ``(nx, ny, nz)`` array and returns the same
-        shape.  Grid-shaped callers avoid a real flat<->tiled relayout
-        copy that XLA inserts for the 1D view (measured 2x the whole
-        apply cost at 256^3 on TPU v5e — keep solver state grid-shaped
-        in hot loops).
+    def _grid(self, x):
+        return x if x.ndim == 3 else x.reshape(self.nx, self.ny, self.nz)
 
-        HBM-scale grids (> ~100 MB, beyond VMEM residency) route to the
-        Pallas kernel when Mosaic is available (round 4:
-        ``ops/stencil_pallas.py`` windowed-DMA kernel — 1.76 ms at
-        512^3 f32, 533 Gnnz/s, ~89% of the measured 687 GB/s streaming
-        roofline), else through an x-slab loop: the whole-array
-        pad+slice form costs ~10 memory passes under XLA's fusion split
-        (pad materializes, the 6-tap sum splits into 4 sibling fusions
-        re-reading it) — cheap at VMEM speed, 7.6 ms at 512^3 f32 from
-        HBM.  Slabbing keeps the pad+fusion traffic slab-sized:
-        measured 4.67 ms at 512^3 (1.63x)."""
-        nx, ny, nz = self.nx, self.ny, self.nz
-        g = x if x.ndim == 3 else x.reshape(nx, ny, nz)
-        itemsize = jnp.dtype(g.dtype).itemsize
-        if g.size * itemsize > _VMEM_RESIDENT_BYTES:
-            y = self._pallas_apply(g, (), "mv", in_place=in_place)
-            if y is not None:
-                return y if x.ndim == 3 else y.reshape(-1)
-            sl = _slab_planes(nx, ny * nz * itemsize)
-            if sl < nx:
-                y = self._slab_mv(g, sl)
-                return y if x.ndim == 3 else y.reshape(-1)
+    def _apply(self, g):
         p = jnp.pad(g, 1)
-        y = self.diag * g + self.off * (
+        return self.diag * g + self.off * (
             p[:-2, 1:-1, 1:-1] + p[2:, 1:-1, 1:-1]
             + p[1:-1, :-2, 1:-1] + p[1:-1, 2:, 1:-1]
             + p[1:-1, 1:-1, :-2] + p[1:-1, 1:-1, 2:]
         )
+
+    def mv(self, x):
+        """Shape-polymorphic apply: accepts the flat ``(nx*ny*nz,)`` vector
+        or the grid-shaped ``(nx, ny, nz)`` array and returns the same
+        shape.  Solvers keep their state grid-shaped in hot loops, which
+        spares the reshape between the two views."""
+        y = self._apply(self._grid(x))
         return y if x.ndim == 3 else y.reshape(-1)
-
-    def _slab_mv(self, g, sl: int, epilogue=None, extras=()):
-        """x-slab stencil pass: per-slab pad+slice with one-plane halo
-        fixups — each slab's padded copy and partial-sum fusions stay
-        slab-sized (VMEM-scoped) instead of array-sized.
-
-        ``epilogue(s, ys, *extra_slabs) -> out``: optional per-slab
-        elementwise combine applied INSIDE the loop (``s`` = this slab
-        of ``g``, ``ys`` = its stencil apply, ``extra_slabs`` = matching
-        slabs of ``extras``).  A combine outside the loop would re-read
-        the materialized whole-array y plus its operands from HBM —
-        ~2 extra memory passes per call at HBM scale (the smoother /
-        residual fusion, ``solvers/multigrid.py``)."""
-        from jax import lax
-
-        nx, ny, nz = self.nx, self.ny, self.nz
-        diag = jnp.asarray(self.diag, g.dtype)
-        off = jnp.asarray(self.off, g.dtype)
-        zero = jnp.asarray(0, g.dtype)
-
-        def body(i, y):
-            start = i * sl
-            s = lax.dynamic_slice(g, (start, 0, 0), (sl, ny, nz))
-            p = jnp.pad(s, 1)
-            ys = diag * s + off * (
-                p[:-2, 1:-1, 1:-1] + p[2:, 1:-1, 1:-1]
-                + p[1:-1, :-2, 1:-1] + p[1:-1, 2:, 1:-1]
-                + p[1:-1, 1:-1, :-2] + p[1:-1, 1:-1, 2:]
-            )
-            up = lax.dynamic_slice(
-                g, (jnp.maximum(start - 1, 0), 0, 0), (1, ny, nz)
-            )
-            up = jnp.where(start == 0, zero, up)
-            dn = lax.dynamic_slice(
-                g, (jnp.minimum(start + sl, nx - 1), 0, 0), (1, ny, nz)
-            )
-            dn = jnp.where(start + sl >= nx, zero, dn)
-            ys = ys.at[0].add(off * up[0])
-            ys = ys.at[-1].add(off * dn[0])
-            if epilogue is not None:
-                ex = [
-                    lax.dynamic_slice(e, (start, 0, 0), (sl, ny, nz))
-                    for e in extras
-                ]
-                ys = epilogue(s, ys, *ex)
-            return lax.dynamic_update_slice(y, ys, (start, 0, 0))
-
-        return lax.fori_loop(0, nx // sl, body, jnp.empty_like(g))
 
     rmv = mv  # symmetric
 
     def mv_dot(self, x):
-        """``(A @ x, x · A x)`` — CG's MatMult+VecTDot pair.  At HBM
-        scale the Pallas 'mv_dot' kind accumulates the dot on-core
-        while the apply streams (ZERO extra HBM traffic); elsewhere the
-        separate dot is VMEM-resident and XLA's fusion is already fine.
+        """``(A @ x, x · A x)`` — CG's MatMult+VecTDot pair, written as
+        one expression so the reduction can join the stencil's fusion.
         The dot accumulates in f32 regardless of storage dtype."""
-        nx, ny, nz = self.nx, self.ny, self.nz
-        g = x if x.ndim == 3 else x.reshape(nx, ny, nz)
-        if g.size * jnp.dtype(g.dtype).itemsize > _VMEM_RESIDENT_BYTES:
-            out = self._pallas_apply(g, (), "mv_dot")
-            if out is not None:
-                y, dot = out
-                return (y if x.ndim == 3 else y.reshape(-1),
-                        dot.astype(x.dtype))
-        y = self.mv(g)
+        g = self._grid(x)
+        y = self._apply(g)
         dot = jnp.sum(g.astype(jnp.float32) * y.astype(jnp.float32))
         return (y if x.ndim == 3 else y.reshape(-1), dot.astype(x.dtype))
 
-    def _pallas_route_ok(self, dtype):
-        """Single Mosaic route-eligibility gate shared by every Pallas
-        route (``_pallas_apply`` and ``axpy_mv_dot``), so a new guard
-        added here applies to all of them: supported dtype (f32/bf16),
-        ``ny`` on the dtype's DMA sublane granularity, and an
-        environment that compiles Mosaic."""
-        if jnp.dtype(dtype) not in (jnp.dtype(jnp.float32),
-                                    jnp.dtype(jnp.bfloat16)):
-            return False
-        from medane_tchakorom_ufc_thesis_repository_tpu.ops import (
-            fused_pallas,
-            stencil_pallas,
-        )
-
-        if self.ny % stencil_pallas.sublane_granularity(dtype):
-            return False
-        # The kernels view the grid as (nx*ny, nz): the lane dim nz must
-        # be a whole number of 128-lane tiles or the HBM DMA slices fail
-        # to lower (Mosaic memref_slice on a padded-lane memref; 320^3
-        # failed this way — the (102400, 320) view tiles to 384 lanes).
-        if self.nz % 128:
-            return False
-        return fused_pallas.pallas_enabled()
-
-    def _pallas_apply(self, g, extras, kind, omega=None,
-                      out_dtype=None, in_place=False):
-        """Route an HBM-scale GRID-SHAPED apply through the Mosaic
-        stencil kernel when the environment compiles it and the shape
-        meets the DMA alignment (``ny`` divisible by the dtype's
-        sublane granularity).  Returns ``None`` to fall back to the
-        XLA slab formulations.  Callers check the >100 MB cutoff: below
-        it the whole-pad form stays VMEM-resident across solver loops
-        and beats any HBM round-trip by construction."""
-        if not self._pallas_route_ok(g.dtype):
-            return None
-        from medane_tchakorom_ufc_thesis_repository_tpu.ops import (
-            stencil_pallas,
-        )
-
-        return stencil_pallas.stencil3d_apply_pallas(
-            g, *extras, nx=self.nx, ny=self.ny, nz=self.nz,
-            diag=self.diag, off=self.off, kind=kind, omega=omega,
-            out_dtype=out_dtype, in_place=in_place,
-        )
-
-    def _fused_apply(self, x, extras, epilogue):
-        """Stencil apply with an elementwise epilogue, slab-fused at HBM
-        scale (identical values either way — the epilogue sees the same
-        ``ys``; below the slab cutoff XLA fuses the composition itself)."""
-        nx, ny, nz = self.nx, self.ny, self.nz
-        g = x if x.ndim == 3 else x.reshape(nx, ny, nz)
-        ex = tuple(
-            e if e.ndim == 3 else e.reshape(nx, ny, nz) for e in extras
-        )
-        itemsize = jnp.dtype(g.dtype).itemsize
-        if g.size * itemsize > _VMEM_RESIDENT_BYTES:
-            sl = _slab_planes(nx, ny * nz * itemsize)
-            if sl < nx:
-                y = self._slab_mv(g, sl, epilogue=epilogue, extras=ex)
-                return y if x.ndim == 3 else y.reshape(-1)
-        y = epilogue(g, self.mv(g), *ex)
-        return y if x.ndim == 3 else y.reshape(-1)
-
-    def jacobi_sweep(self, x, b, omega, out_dtype=None,
-                     in_place: bool = False):
+    def jacobi_sweep(self, x, b, omega, out_dtype=None):
         """One damped-Jacobi smoothing sweep ``x + omega * (b - A x)``
-        with the update fused into the stencil pass (Pallas kernel or
-        slab epilogue — saves ~2 full memory passes per sweep at HBM
-        scale; the MG level-0 smoother hot path,
-        ``solvers/multigrid.py``).
+        (the MG smoother, ``solvers/multigrid.py``).  ``out_dtype``: the
+        result's storage dtype (default ``x.dtype``); the cast is part of
+        the same expression."""
+        g = self._grid(x)
+        w = jnp.asarray(omega, g.dtype)
+        y = g + w * (self._grid(b) - self._apply(g))
+        if out_dtype is not None:
+            y = y.astype(out_dtype)
+        return y if x.ndim == 3 else y.reshape(x.shape)
 
-        ``out_dtype``: storage dtype of the result (default
-        ``x.dtype``) — the Pallas kernel writes it directly, removing
-        the separate cast pass at the bf16-cycle/f32-solver boundary;
-        the fallbacks cast after (XLA fuses the cast into its epilogue
-        pass, so values match either way)."""
-        y = self._pallas_fused(x, (b,), "jacobi", omega,
-                               out_dtype=out_dtype, in_place=in_place)
-        if y is not None:
-            return y
-        w = jnp.asarray(omega, x.dtype)
-        y = self._fused_apply(
-            x, (b,), lambda s, ys, bb: s + w * (bb - ys)
-        )
-        return y if out_dtype is None else y.astype(out_dtype)
-
-    def axpy_mv_dot(self, z, p, beta):
-        """``(p', A p', p' · A p')`` with ``p' = z + beta p`` — PCG's
-        direction update + matvec + direction dot in one streaming pass
-        (four HBM streams instead of six; ``ops/stencil_pallas.py``
-        '_kernel3d_amvd').  ``beta`` is a traced per-iteration scalar.
-
-        MEASURED NEGATIVE on v5e at 512^3: 7.4 ms vs ~5.4 for
-        axpy + ``mv_dot`` (the two halo-windowed input streams don't
-        overlap as well as one; north-star 0.308 vs 0.292 s) — so the
-        fused north-star does NOT route here; kept for meshes/chips
-        where the stream trade differs.
-        Fallback composes the axpy with ``mv_dot`` (identical values up
-        to f32 rounding of the fused form's recomputed halo planes —
-        the same p' expression evaluated in f32 either way)."""
-        nx, ny, nz = self.nx, self.ny, self.nz
-        g = z if z.ndim == 3 else z.reshape(nx, ny, nz)
-        gp = p if p.ndim == 3 else p.reshape(nx, ny, nz)
-        if (g.size * jnp.dtype(g.dtype).itemsize > _VMEM_RESIDENT_BYTES
-                and jnp.dtype(g.dtype) == jnp.dtype(jnp.float32)):
-            if self._pallas_route_ok(g.dtype):
-                from medane_tchakorom_ufc_thesis_repository_tpu.ops import (  # noqa: E501
-                    stencil_pallas,
-                )
-
-                pn, ap, dot = stencil_pallas.stencil3d_axpy_mv_dot_pallas(
-                    g, gp, beta, nx=nx, ny=ny, nz=nz, diag=self.diag,
-                    off=self.off)
-                if z.ndim != 3:
-                    pn, ap = pn.reshape(z.shape), ap.reshape(z.shape)
-                return pn, ap, dot
-        pn = g + jnp.asarray(beta, g.dtype) * gp.astype(g.dtype)
-        ap, dot = self.mv_dot(pn)
-        if z.ndim != 3:
-            pn, ap = pn.reshape(z.shape), ap.reshape(z.shape)
-        return pn, ap, dot
-
-    def jacobi_sweep_dot(self, x, b, omega, out_dtype=None,
-                         in_place: bool = False):
-        """``(x', b · x')`` with ``x' = x + omega (b - A x)`` — the
-        damped-Jacobi sweep plus the dot of the result against the RHS,
-        accumulated on-core by the Pallas 'jacobi_dot' kind.  This is
-        PCG's ``vdot(r, z)`` immediately after the MG cycle: the
-        cycle's final smoothing kernel already holds both operands in
-        VMEM, so the dot costs ZERO extra HBM traffic (vs a separate
-        two-array reduction pass, ~1.3 ms at 512^3).  The dot
-        accumulates in f32; the fallback computes the sweep then an
-        explicit f32 dot (free at VMEM-resident sizes)."""
-        nx, ny, nz = self.nx, self.ny, self.nz
-        g = x if x.ndim == 3 else x.reshape(nx, ny, nz)
-        gb = b if b.ndim == 3 else b.reshape(nx, ny, nz)
-        if g.size * jnp.dtype(g.dtype).itemsize > _VMEM_RESIDENT_BYTES:
-            try:
-                w = float(omega)
-            except Exception:   # traced omega — not compile-time static
-                w = None
-            if w is not None:
-                out = self._pallas_apply(g, (gb,), "jacobi_dot", w,
-                                         out_dtype=out_dtype,
-                                         in_place=in_place)
-                if out is not None:
-                    y, dot = out
-                    return (y if x.ndim == 3 else y.reshape(x.shape),
-                            dot)
-        y = self.jacobi_sweep(g, gb, omega, out_dtype=out_dtype)
-        dot = jnp.sum(gb.astype(jnp.float32) * y.astype(jnp.float32))
-        return (y if x.ndim == 3 else y.reshape(x.shape), dot)
+    def jacobi_sweep_dot(self, x, b, omega, out_dtype=None):
+        """``(x', b · x')`` with ``x' = x + omega (b - A x)`` — the final
+        smoothing sweep of an MG cycle plus PCG's ``vdot(r, z)`` on its
+        result, accumulated in f32."""
+        y = self.jacobi_sweep(x, b, omega, out_dtype=out_dtype)
+        dot = jnp.sum(b.astype(jnp.float32).reshape(y.shape)
+                      * y.astype(jnp.float32))
+        return y, dot
 
     def residual(self, x, b):
-        """``b - A x`` with the subtraction fused into the stencil pass."""
-        y = self._pallas_fused(x, (b,), "residual")
-        if y is not None:
-            return y
-        return self._fused_apply(x, (b,), lambda s, ys, bb: bb - ys)
-
-    def mv_cast(self, x, dtype):
-        """``(A @ x, x)`` both rounded to ``dtype`` in one streaming
-        pass, or ``None`` when the fused Mosaic kernel is not routable
-        (callers cast then apply).  The entry of a reduced-precision MG
-        cycle: the f32 residual is read ONCE; the pre-smoothed iterate
-        and the RHS copy leave at cycle precision with no separate cast
-        pass (``solvers/multigrid.py``)."""
-        nx, ny, nz = self.nx, self.ny, self.nz
-        g = x if x.ndim == 3 else x.reshape(nx, ny, nz)
-        if g.size * jnp.dtype(g.dtype).itemsize <= _VMEM_RESIDENT_BYTES:
-            return None
-        if jnp.dtype(g.dtype) not in (jnp.dtype(jnp.float32),
-                                      jnp.dtype(jnp.bfloat16)):
-            return None
-        from medane_tchakorom_ufc_thesis_repository_tpu.ops import (
-            fused_pallas,
-            stencil_pallas,
-        )
-
-        gran = max(stencil_pallas.sublane_granularity(g.dtype),
-                   stencil_pallas.sublane_granularity(dtype))
-        if ny % gran or nx % 8:
-            return None
-        if not fused_pallas.pallas_enabled():
-            return None
-        return stencil_pallas.stencil3d_mv_cast_pallas(
-            g, nx=nx, ny=ny, nz=nz, diag=self.diag, off=self.off,
-            out_dtype=dtype,
-        )
-
-    def prolong_jacobi(self, x, b, e, omega):
-        """``m + omega (b - A m)`` with ``m = x + P e`` (PWC
-        prolongation of the coarse correction ``e``) — the V-cycle's
-        correction step fused with the first post-smoothing sweep, or
-        ``None`` when the Mosaic kernel is not routable (callers fall
-        back to prolong + add + ``jacobi_sweep``)."""
-        nx, ny, nz = self.nx, self.ny, self.nz
-        g = x if x.ndim == 3 else x.reshape(nx, ny, nz)
-        if g.size * jnp.dtype(g.dtype).itemsize <= _VMEM_RESIDENT_BYTES:
-            return None
-        if jnp.dtype(g.dtype) not in (jnp.dtype(jnp.float32),
-                                      jnp.dtype(jnp.bfloat16)):
-            return None
-        from medane_tchakorom_ufc_thesis_repository_tpu.ops import (
-            fused_pallas,
-            stencil_pallas,
-        )
-
-        gran = stencil_pallas.sublane_granularity(g.dtype)
-        # the coarse plane's LANE dim (nz//2) must be a whole number of
-        # 128-lane tiles: Mosaic rejects VMEM slices whose minor dim
-        # is not 128-aligned (measured at 384^3: nz//2 = 192 fails)
-        if ny % (2 * gran) or nx % 2 or (nz // 2) % 128 or nx % 8:
-            return None
-        if not fused_pallas.pallas_enabled():
-            return None
-        try:
-            omega = float(omega)
-        except (TypeError, jax.errors.TracerArrayConversionError):
-            return None
-        bg = b if b.ndim == 3 else b.reshape(nx, ny, nz)
-        return stencil_pallas.stencil3d_prolong_jacobi_pallas(
-            g, bg, e, nx=nx, ny=ny, nz=nz, diag=self.diag, off=self.off,
-            omega=omega,
-        )
-
-    def residual_restrict(self, x, b, scale=1.0):
-        """``scale * mean_{2x2x2}(b - A x)`` on the factor-2-coarsened
-        grid, or ``None`` when the fused Mosaic kernel is not routable
-        (CPU, unaligned shape, or below the HBM cutoff — callers fall
-        back to ``residual`` + the XLA restriction).  At HBM scale the
-        fine residual never touches HBM: x and b stream in, only the
-        1/8-size coarse residual streams out (the MG coarsening step,
-        ``solvers/multigrid.py``)."""
-        nx, ny, nz = self.nx, self.ny, self.nz
-        g = x if x.ndim == 3 else x.reshape(nx, ny, nz)
-        if g.size * jnp.dtype(g.dtype).itemsize <= _VMEM_RESIDENT_BYTES:
-            return None
-        if jnp.dtype(g.dtype) not in (jnp.dtype(jnp.float32),
-                                      jnp.dtype(jnp.bfloat16)):
-            return None
-        from medane_tchakorom_ufc_thesis_repository_tpu.ops import (
-            fused_pallas,
-            stencil_pallas,
-        )
-
-        gran = stencil_pallas.sublane_granularity(g.dtype)
-        # nz//2 must be 128-lane aligned (see prolong_jacobi)
-        if ny % (2 * gran) or nx % 2 or (nz // 2) % 128 or nx % 8:
-            return None
-        if not fused_pallas.pallas_enabled():
-            return None
-        bg = b if b.ndim == 3 else b.reshape(nx, ny, nz)
-        return stencil_pallas.stencil3d_residual_restrict_pallas(
-            g, bg, nx=nx, ny=ny, nz=nz, diag=self.diag, off=self.off,
-            scale=float(scale),
-        )
-
-    def _pallas_fused(self, x, extras, kind, omega=None,
-                      out_dtype=None, in_place=False):
-        """Pallas route for the fused epilogues; the STATIC-omega
-        requirement (it compiles into the kernel) falls back to the
-        slab epilogue when omega arrives as a traced value."""
-        nx, ny, nz = self.nx, self.ny, self.nz
-        g = x if x.ndim == 3 else x.reshape(nx, ny, nz)
-        if g.size * jnp.dtype(g.dtype).itemsize <= _VMEM_RESIDENT_BYTES:
-            return None
-        if omega is not None:
-            try:
-                omega = float(omega)
-            except Exception:  # traced omega — not compile-time static
-                return None
-        ex = tuple(e if e.ndim == 3 else e.reshape(nx, ny, nz)
-                   for e in extras)
-        y = self._pallas_apply(g, ex, kind, omega, out_dtype=out_dtype,
-                               in_place=in_place)
-        if y is None:
-            return None
+        """``b - A x``."""
+        g = self._grid(x)
+        y = self._grid(b) - self._apply(g)
         return y if x.ndim == 3 else y.reshape(x.shape)
 
     def to_dense(self):
@@ -794,8 +423,8 @@ _register(StencilStrip3D, [], ["rows", "ny", "nz", "diag", "off"])
 
 @dataclasses.dataclass(frozen=True)
 class DIA:
-    """Diagonal (DIA) sparse format — the TPU-native general path for
-    banded matrices (every constant-stencil PDE discretization).
+    """Diagonal (DIA) sparse format — the general path for banded
+    matrices (every constant-stencil PDE discretization).
 
     ``offsets`` is a static tuple of diagonal offsets; ``data`` has shape
     ``(ndiag, n)`` with ``data[d, i] = A[i, i + offsets[d]]`` (row-aligned;
@@ -826,8 +455,7 @@ class DIA:
 
     def mv(self, x: jax.Array) -> jax.Array:
         # pad+slice formulation (NOT .at[].add slice chains, which lower
-        # to poorly-fused dynamic-update-slices on TPU — measured 5.5x
-        # slower for the stencils): one padded copy, then every diagonal
+        # to chains of dynamic-update-slices): one padded copy, then every diagonal
         # is a contiguous slice * elementwise multiply, all fused by XLA
         # into one bandwidth-bound pass.  Out-of-range x reads hit the
         # zero padding, so padded data slots need no masking.
@@ -869,7 +497,7 @@ _register(DIA, ["data"], ["offsets"])
 
 @dataclasses.dataclass(frozen=True)
 class BSR:
-    """Block-sparse row operator (block-ELL layout) — the TPU path for
+    """Block-sparse row operator (block-ELL layout) — the path for
     genuinely unstructured sparsity with block structure.
 
     This is the capability-parity answer to the reference's AIJ matrices
@@ -877,12 +505,10 @@ class BSR:
     pattern is neither banded (→ ``DIA``) nor a constant stencil
     (→ ``Stencil2D/3D``): nonzeros are stored as dense ``(bs, bs)``
     sub-blocks, so SpMV is a block-row gather (contiguous ``bs``-sized
-    rows of the reshaped ``x`` — the embedding-style lookup TPUs handle,
-    not elementwise gathers) followed by batched sub-block matvecs
-    (MXU-shaped ``dot_general``).  ``rmv`` runs the same kernel on a
-    transpose pack built at construction time — no scatter-adds anywhere
-    (scatter-add is the construct this repo measured as pathological on
-    TPU).
+    rows of the reshaped ``x``, not elementwise gathers) followed by
+    batched sub-block matvecs (one ``dot_general``).  ``rmv`` runs the
+    same contraction on a transpose pack built at construction time — no
+    scatter-adds anywhere.
 
     ``indices``/``values``: ``(nbr, width)`` block-column ids and
     ``(nbr, width, bs, bs)`` blocks for A; ``indices_t``/``values_t``:
@@ -929,14 +555,11 @@ class BSR:
         xb = xp.reshape(ncb, bs)
         g = jnp.take(xb, indices, axis=0)          # (nbr, width, bs) rows
         # blocks are stored TRANSPOSED (values[r, w, j, i] = A_blk[i, j])
-        # so the contraction runs over the SUBLANE dim: measured 140 vs
-        # 95 Gnnz/s for the untransposed 'rwij,rwj->ri' form at bs=128
-        # (86% of the values-read roofline; the gather itself is 35 us
-        # of the 239 us pass — BENCHMARKS.md BSR table)
+        # so the contraction runs over the second-to-last dim
         y = jnp.einsum(
             "rwji,rwj->ri", values, g,
-            precision=jax.lax.Precision.HIGHEST,   # values matter: avoid
-        )                                          # bf16 operand truncation
+            precision=jax.lax.Precision.HIGHEST,   # values matter: no
+        )                                          # TF32 operand rounding
         return y.reshape(-1)[:n_out]
 
     def mv(self, x: jax.Array) -> jax.Array:
@@ -1013,8 +636,8 @@ def _bsr_pack_np(rows, cols, vals, shape, bs: int):
     starts[1:] = np.cumsum(counts)[:-1]
     slot = np.arange(len(uniq)) - starts[ubr]   # uniq sorted => row-grouped
     blocks = np.zeros((len(uniq), bs, bs))
-    # stored transposed: blocks[b, j, i] = A_blk[i, j] (sublane-dim
-    # contraction in BSR._blockmv — see the measurement note there)
+    # stored transposed: blocks[b, j, i] = A_blk[i, j] (the layout
+    # BSR._blockmv contracts over)
     np.add.at(blocks, (inv, cols % bs, rows % bs), vals)
     indices = np.zeros((nbr, width), np.int32)
     values = np.zeros((nbr, width, bs, bs))
@@ -1079,20 +702,13 @@ class AIJ:
 
     ANY sparsity pattern, square or rectangular, at any size: the pack
     compiles the access pattern into a Clos-routed gather program over
-    the Mosaic ``dynamic_gather`` primitives (``ops/aij_pack.py`` has
-    the construction; ``ops/aij_pallas.py`` the kernels).  Per-apply
-    traffic is pattern-independent, ~7x the values-read roofline — vs
-    the raw gather-ELL path's ~2000x (or failure to compile past
-    n=4096) that made large structureless matrices the one capability
-    hole against PETSc through round 4.
+    (8, 128) blocks (``ops/aij_pack.py`` has the construction), applied
+    as plain ``take_along_axis`` gathers (``aij_pack.aij_mv_jnp``).
+    Per-apply traffic is pattern-independent.
 
     ``rmv`` (LSQR/CGNE's transpose matvec) runs a second plan packed
-    from the transpose — a gather like any other, where ELL's rmv was a
-    TPU-pathological scatter-add.
-
-    On backends without Mosaic the same routing runs as pure-XLA
-    ``take_along_axis`` over the (8, 128) block axes (reach ≤ 8 / ≤ 128
-    keeps the lowered selects small, unlike the whole-x gather).
+    from the transpose — a gather like any other, where ELL's rmv is a
+    scatter-add.
     """
 
     segments: Tuple[AIJSegment, ...]
@@ -1180,16 +796,8 @@ class AIJ:
         )
 
     def _apply(self, segments, n_pad, nout, x):
-        from medane_tchakorom_ufc_thesis_repository_tpu.ops import (
-            aij_pack,
-            aij_pallas,
-            fused_pallas,
-        )
+        from medane_tchakorom_ufc_thesis_repository_tpu.ops import aij_pack
 
-        if fused_pallas.pallas_enabled():
-            interpret = jax.default_backend() != "tpu"
-            return aij_pallas.aij_mv_pallas(
-                segments, n_pad, nout, x, interpret=interpret)
         return aij_pack.aij_mv_jnp(segments, n_pad, nout, x)
 
     def mv(self, x: jax.Array) -> jax.Array:
@@ -1214,15 +822,13 @@ def operator_from_coo(rows, cols, vals, shape, dtype=jnp.float32,
                       max_bsr_bytes: int = 2 << 30):
     """The ``create_matrix_sparse`` entry point (reference
     ``src/utils/utils.c:139-155``): accept ANY sparsity pattern as COO
-    and return the TPU-efficient operator directly — banded → ``DIA``,
-    blockable → ``BSR``, small unstructured → ``DenseOp`` (the MXU
-    eats an n ≤ ``max_dense_n`` dense matvec for breakfast: measured
-    0.092 ms dense vs 1.15 ms gather-ELL at n=4096, 13×; essentially
-    free at n=1024), rectangular or large residual → ``ELL`` (with the
-    gather-path warning from ``as_tpu_operator``'s policy).
+    and return a device-efficient operator directly — banded → ``DIA``,
+    blockable → ``BSR``, small unstructured (n ≤ ``max_dense_n``) →
+    ``DenseOp``, large unstructured → ``AIJ`` (or a high-fill ``BSR``
+    when its estimated cost undercuts AIJ's).
 
     ``max_dense_n`` defaults to the calibrated value for the current
-    chip (``core.calibration``; shipped v5e: 4096)."""
+    device (``core.calibration``)."""
     from medane_tchakorom_ufc_thesis_repository_tpu.core import poisson
     from medane_tchakorom_ufc_thesis_repository_tpu.core.calibration import (
         default_max_dense_n,
@@ -1245,8 +851,8 @@ def operator_from_coo(rows, cols, vals, shape, dtype=jnp.float32,
             return routed
     elif max(shape) <= max_dense_n:
         # small rectangular → dense: ELL's rectangular rmv is a
-        # scatter-add (TPU-pathological), and rmv is exactly what the
-        # least-squares KSPs (lsqr/cgne) drive
+        # scatter-add, and rmv is exactly what the least-squares KSPs
+        # (lsqr/cgne) drive
         return _dense_from_coo(rows, cols, vals, shape, dtype)
     else:
         # large rectangular → AIJ (Clos-routed gather; rmv is a second
@@ -1262,19 +868,9 @@ def _dense_from_coo(rows, cols, vals, shape, dtype):
     return DenseOp(a=jnp.asarray(dense, dtype))
 
 
-# Routing constants (gather-ELL cost bar, BSR block-size penalties,
-# dense cutoff) live in core.calibration: shipped v5e measurements,
-# overridable by a per-chip file produced by ``utils.calibrate``.
-
-
-# Is there a density below which a small matrix is better left as
-# gather-ELL than densified?  NO — measured (v5e, barriered-slope):
-# random square at density 0.1% / 0.5% / 2%, dense wins 6.2/44/~inf x
-# at n=1024 and 4.6/11.5/37 x at n=4096.  The per-nonzero value-count
-# model (m*n vs 139*nnz) predicts ELL wins below ~0.7% density, but
-# ELL's gather throughput collapses at small row counts while the dense
-# matvec is near the dispatch floor — so the dense route applies
-# unconditionally below max_dense_n.
+# Routing constants (gather-ELL and AIJ cost bars, BSR block-size
+# penalties, dense cutoff) live in core.calibration: shipped H100
+# measurements, overridable by a per-device file from ``utils.calibrate``.
 
 
 def _route_unbanded_square_coo(rows, cols, vals, shape, dtype,
@@ -1363,48 +959,28 @@ def bsr_block_fill_from_coo(rows, cols, shape, bs: int) -> float:
     return nbr * width * bs * bs / max(len(np.asarray(rows)), 1)
 
 
-def _BSR_BS_PENALTY():
-    """Per-stored-value SpMV cost by block size, relative to the best
-    (shipped: v5e barriered-slope, BENCHMARKS.md BSR table — bs=8 pads
-    the (8,128) lane tiling 16x; the bs=64 dip reproduced across runs).
-    Now an accessor over ``core.calibration`` so a per-chip file from
-    ``utils.calibrate`` overrides the shipped table."""
-    from medane_tchakorom_ufc_thesis_repository_tpu.core.calibration import (
-        bsr_bs_penalty,
-    )
-
-    return bsr_bs_penalty()
-
-
-def as_tpu_operator(op, max_diags: int = 64, max_bsr_cost: float = 16.0,
+def as_device_operator(op, max_diags: int = 64, max_bsr_cost: float = 16.0,
                     bsr_block_sizes: Tuple[int, ...] = (8, 16, 32, 64, 128),
                     max_dense_n: Optional[int] = None,
                     max_bsr_bytes: int = 2 << 30):
-    """Pick the TPU-efficient representation for ``op``.
+    """Pick a device-efficient representation for ``op``.
 
-    ELL matvecs are elementwise-gather-bound (two orders of magnitude off
-    the DIA / stencil paths on TPU).  Routing for a square ELL matrix:
+    ELL matvecs are elementwise-gather-bound.  Routing for a square ELL
+    matrix:
 
     1. at most ``max_diags`` distinct diagonals → ``DIA`` (slice speed);
     2. blockable → ``BSR`` (block-row gathers + batched sub-block
        matvecs): pick the ``bs`` minimizing
-       ``fill(bs) * _BSR_BS_PENALTY[bs]`` (estimated per-nonzero cost
+       ``fill(bs) * bsr_bs_penalty()[bs]`` (estimated per-nonzero cost
        relative to the slice paths), accept if that cost is at most
        ``max_bsr_cost``;
-    3. small unstructured (n ≤ ``max_dense_n``) → ``DenseOp``: the MXU
-       dense matvec measured 13× the gather-ELL at n=4096 and is
-       essentially free at n ≤ 1024 (64 MB of operator storage at the
-       cutoff);
+    3. small unstructured (n ≤ ``max_dense_n``) → ``DenseOp``;
     4. last resort, a HIGH-fill BSR whose estimated cost still beats
-       the measured gather-ELL cost (~1950x off slice speed steady
-       state — see ``core.calibration``) wins if the pack fits in
-       ``max_bsr_bytes``; otherwise stays gather-ELL with a
-       ``UserWarning`` — that path also has a TPU-pathological
-       scatter-add ``rmv``, and above ~2048² the gather's lane-padded
-       select OOMs at compile time.
+       the measured AIJ cost (``core.calibration``) wins if the pack
+       fits in ``max_bsr_bytes``; otherwise ``AIJ``, the routed gather.
 
     ``max_dense_n`` defaults to the calibrated value for the current
-    chip (``core.calibration``; shipped v5e: 4096).
+    device (``core.calibration``).
     """
     from medane_tchakorom_ufc_thesis_repository_tpu.core.calibration import (
         default_max_dense_n,
@@ -1419,7 +995,7 @@ def as_tpu_operator(op, max_diags: int = 64, max_bsr_cost: float = 16.0,
         routed = _route_unbanded_square_coo(
             rows, cols, vals, op.shape, op.dtype, max_bsr_cost,
             bsr_block_sizes, max_dense_n, max_bsr_bytes=max_bsr_bytes,
-            caller="as_tpu_operator",
+            caller="as_device_operator",
         )
         if routed is not None:
             return routed

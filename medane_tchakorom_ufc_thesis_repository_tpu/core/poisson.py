@@ -1,6 +1,6 @@
 """Problem generators: 2D/3D Poisson stencil systems.
 
-TPU-native rebuild of the reference's assembly routines
+Matrix-free-first rebuild of the reference's assembly routines
 (``poisson2DMatrix`` ``src/utils/utils.c:247-293``, ``poisson3DMatrix``
 ``utils.c:30-121``, ``poisson2DMatrix_complete`` ``utils.c:383-445``) and of
 the block split ``divideSubDomainIntoBlockMatrices`` (``utils.c:450-478``).
@@ -15,7 +15,8 @@ Conventions (identical to the reference):
 
 Assembly happens host-side in numpy (cheap: O(N) index arithmetic) and is
 shipped to device as ELL planes; the matrix-free ``Stencil*`` operators in
-``core.operators`` need no assembly at all and are the preferred TPU path.
+``core.operators`` need no assembly at all and are the preferred device
+path.
 """
 
 from __future__ import annotations

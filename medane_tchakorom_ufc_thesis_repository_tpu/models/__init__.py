@@ -1,6 +1,6 @@
 """Algorithm drivers — the framework's "models".
 
-Each driver is the TPU-native rebuild of one reference binary
+Each driver is the JAX rebuild of one reference binary
 (SURVEY.md §2.4): SM, AM, SMSM_{LOCAL,SEMI_LOCAL,GLOBAL},
 AMAM_{LOCAL,SEMI_LOCAL,GLOBAL}, and the GMRES baseline.
 """

@@ -100,8 +100,9 @@ class StackedStencil2D(BlockOperator):
         return x.reshape(self.nblocks, self.rows, self.n)
 
     def diag_mv(self, x):
-        # pad+slice: fuses to one bandwidth-bound pass on TPU (5.5x the
-        # .at[].add form); the block axis is not padded
+        # pad+slice: XLA fuses it into one bandwidth-bound pass (the
+        # .at[].add form lowers to update-slice chains); the block axis
+        # is not padded
         g = self._grid(x)
         p = jnp.pad(g, ((0, 0), (1, 1), (1, 1)))
         y = self.diag * g + self.off * (
@@ -380,8 +381,8 @@ jax.tree_util.register_dataclass(
 class StackedDIAOperator(BlockOperator):
     """Banded general-sparse path: diagonal-plane storage, no gathers.
 
-    The ELL gather SpMV is two orders of magnitude off the slice-based
-    paths on TPU (measured 139x, BENCHMARKS.md) — for banded systems
+    The ELL gather SpMV reads an index per nonzero and gathers — for
+    banded systems
     (every constant-stencil PDE discretization, the reference's
     ``create_matrix_sparse`` AIJ use case, ``utils.c:139-155``) the same
     matrix is a handful of diagonal planes, and the matvec becomes a sum
@@ -490,7 +491,7 @@ class StackedBSROperator(BlockOperator):
     ``ii_idx``/``ii_val``: per-Jacobi-block diagonal parts as block-ELL
     with a shared width — ``(nb, nbr, w)`` int32 LOCAL sub-block-column
     ids and ``(nb, nbr, w, c, c)`` TRANSPOSED ``(c, c)`` sub-blocks
-    (sublane-contraction layout, measured 1.5x — see ``BSR``).
+    (the layout ``BSR`` uses).
     ``ii_diag``: ``(nb, bs)`` diagonal of each A_ii (Jacobi pc hook).
     ``ic``: the cross-block coupling as one global ``BSR`` over the
     merged ``(nb*bs,)`` vector.  Build with ``from_stacked_ell``.
@@ -669,7 +670,7 @@ def stacked_bsr_from_ell(op: StackedELLOperator,
     """Convert a blockable (non-banded) ``StackedELLOperator`` to
     ``StackedBSROperator``.  Returns None when no sub-block size in
     ``block_sizes`` keeps the estimated per-nonzero cost (fill x
-    measured layout penalty, shared with ``as_tpu_operator``) under
+    measured layout penalty, shared with ``as_device_operator``) under
     ``max_cost`` for BOTH the diagonal parts and the coupling."""
     from medane_tchakorom_ufc_thesis_repository_tpu.core.calibration import (
         bsr_bs_penalty,
@@ -763,15 +764,15 @@ def stacked_bsr_from_ell(op: StackedELLOperator,
     )
 
 
-def as_stacked_tpu_operator(op, max_diags: int = 64,
-                            max_bsr_cost: float = 16.0,
-                            bsr_block_sizes: Tuple[int, ...] = (8, 16, 32,
-                                                                64)):
-    """Pick the TPU-efficient stacked representation (the blockwise
-    analog of ``core.operators.as_tpu_operator``): banded ELL splits
+def as_stacked_device_operator(op, max_diags: int = 64,
+                               max_bsr_cost: float = 16.0,
+                               bsr_block_sizes: Tuple[int, ...] = (8, 16, 32,
+                                                                   64)):
+    """Pick the device-efficient stacked representation (the blockwise
+    analog of ``core.operators.as_device_operator``): banded ELL splits
     become DIA planes, blockable splits become ``StackedBSROperator``,
     and anything left passes through with a ``UserWarning`` (the
-    elementwise-gather path is 961x off the DIA planes, BENCHMARKS.md)."""
+    elementwise-gather path is the slowest of the three)."""
     if isinstance(op, StackedELLOperator):
         out = from_stacked_ell(op, max_diags=max_diags)
         if out is not op:
@@ -782,11 +783,10 @@ def as_stacked_tpu_operator(op, max_diags: int = 64,
         import warnings
 
         warnings.warn(
-            "as_stacked_tpu_operator: block split is neither banded "
+            "as_stacked_device_operator: block split is neither banded "
             f"(> {max_diags} distinct diagonals) nor blockable "
             f"(estimated BSR cost > {max_bsr_cost}x per nonzero); "
-            "staying on gather-ELL block applies, measured 961x off "
-            "the DIA planes on TPU (BENCHMARKS.md).",
+            "staying on gather-ELL block applies.",
             UserWarning, stacklevel=2,
         )
     return op

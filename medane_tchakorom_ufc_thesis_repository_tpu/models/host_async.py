@@ -219,11 +219,11 @@ def host_async_solve(
 
         @jax.jit
         def minimize_local(S_cols, rhs_b):
-            # R = A_ii @ S per column; direct tall-skinny LS (the TPU
+            # R = A_ii @ S per column; direct tall-skinny LS (the
             # analog of outer_solver_lsqr on the local basis)
             R = jax.vmap(mv)(S_cols).T          # (bs, s)
             alpha = lstsq_qr(R, rhs_b)
-            return S_cols.T @ alpha
+            return jnp.matmul(S_cols.T, alpha, precision="highest")
 
         @jax.jit
         def gram_contrib(S_full):
@@ -233,13 +233,13 @@ def host_async_solve(
             # in its async dense-R exchange (comm_async_*_min,
             # comm.c:288-351); here the s x s Gram is exchanged instead.
             R_rows = jax.vmap(op.full_mv)(S_full)[:, k, :]   # (s, bs)
-            G = R_rows @ R_rows.T                            # (s, s)
-            c = R_rows @ b[k]
+            G = jnp.matmul(R_rows, R_rows.T, precision="highest")
+            c = jnp.matmul(R_rows, b[k], precision="highest")
             return G, c
 
         @jax.jit
         def combine(S_own, alpha):
-            return S_own.T @ alpha
+            return jnp.matmul(S_own.T, alpha, precision="highest")
 
         return sweep, minimize_local, gram_contrib, combine
 

@@ -318,7 +318,7 @@ def net_async_block_solve(
         )
 
         alpha = lstsq_qr(R, rhs_b)
-        return S_cols.T @ alpha
+        return jnp.matmul(S_cols.T, alpha, precision="highest")
 
     @jax.jit
     def gram_contrib(S_full):
@@ -326,13 +326,13 @@ def net_async_block_solve(
         # the s x s exchange that replaces the reference's dense-R
         # shipping (comm_async_*_min, comm.c:288-351)
         R_rows = jax.vmap(op.full_mv)(S_full)[:, rank, :]   # (s, bs)
-        G = R_rows @ R_rows.T
-        c = R_rows @ b[rank]
+        G = jnp.matmul(R_rows, R_rows.T, precision="highest")
+        c = jnp.matmul(R_rows, b[rank], precision="highest")
         return G, c
 
     @jax.jit
     def combine(S_own, alpha):
-        return S_own.T @ alpha
+        return jnp.matmul(S_own.T, alpha, precision="highest")
 
     def _solve_gram_np(G, c):
         # minimum-norm LS: early bases can be rank-deficient
@@ -359,7 +359,8 @@ def net_async_block_solve(
             else:                                     # semi_local
                 Rr = R[:, rank, :]
                 target = b[rank]
-            return Rr @ Rr.T, Rr @ target
+            return (jnp.matmul(Rr, Rr.T, precision="highest"),
+                    jnp.matmul(Rr, target, precision="highest"))
 
         def rec_local_rhs(x_stack):
             if minimization is not None:
@@ -779,10 +780,10 @@ def launch_net_async(
     from medane_tchakorom_ufc_thesis_repository_tpu.utils.multihost import (
         free_port,
         run_ranks,
-        scrubbed_env,
+        cpu_worker_env,
     )
 
-    env = scrubbed_env(1)
+    env = cpu_worker_env(1)
 
     def attempt():
         ports = [free_port() for _ in range(nblocks)]

@@ -7,7 +7,7 @@ framework never hard-depends on the native path.
 
 This is the rebuild's native runtime component for host-side work — the
 counterpart of the reference's C assembly layer (``poisson2DMatrix``,
-``src/utils/utils.c:247-293``); device compute stays in XLA/Pallas.
+``src/utils/utils.c:247-293``); device compute stays in XLA.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 // Native assembly kernels: Poisson stencil -> ELL/DIA planes, COO packing.
 //
-// The TPU-native counterpart of the reference's C assembly layer
+// The native counterpart of the reference's C assembly layer
 // (poisson2DMatrix src/utils/utils.c:247-293, poisson3DMatrix
 // utils.c:30-121, MatSetValues-based AIJ fill).  Host-side problem
 // construction is the one part of this framework that is not device
@@ -161,8 +161,8 @@ int32_t coo_to_ell(int64_t nnz, int64_t nrows, int64_t width,
 // slot ids (position-aligned with `order`), return the max distinct
 // block count (the shared padded width), or -1 on bad input.
 // Phase 2 (bsr_pack_fill): scatter block-column ids and TRANSPOSED
-// values (values[r, w, c%bs, r%bs] — the sublane-contraction layout
-// measured fastest on TPU) using the phase-1 plan.  Parallel over
+// values (values[r, w, c%bs, r%bs] — the layout BSR._blockmv
+// contracts over) using the phase-1 plan.  Parallel over
 // block rows — each row's slots are touched by exactly one thread.
 // ---------------------------------------------------------------------
 int64_t bsr_pack_plan(int64_t nnz, int64_t nrows, int64_t ncols,

@@ -5,7 +5,7 @@
 // bipartite graph), label edges alternately into two Δ/2-regular
 // halves, recurse t levels.  O(E·t) time, O(E) memory.
 //
-// This is the host-side routing step of the TPU AIJ SpMV — the analog
+// This is the host-side routing step of the AIJ SpMV — the analog
 // of the CSR assembly the reference does once per matrix
 // (create_matrix_sparse, /root/reference/src/utils/utils.c:139-155);
 // the python fallback walks the same circuits ~50x slower.
@@ -131,7 +131,7 @@ void euler_color_blocks(int64_t nb, const int64_t* src, const int64_t* dst,
 // AIJ g-block greedy placement (the pack-time hot loop of
 // ops/aij_pack._pack_gblocks — the K1 gather constraint: within a
 // block, cells in row i whose source lane is l must all read the same
-// source sublane; spill-on-conflict).  Elements arrive SORTED by chunk
+// source row; spill-on-conflict).  Elements arrive SORTED by chunk
 // (`order` indexes the original arrays).  Writes per-POSITION outputs
 // (elem_order, src_off, block_of; positions 0..m) and per-block chunk
 // ids (capacity m + 1).  Returns the block count.

@@ -1,35 +1,8 @@
-"""Hand-written TPU kernels (Pallas) for the hot operations.
+"""Host-side pack for the general unstructured ``AIJ`` operator.
 
-The reference's hot leaves (SURVEY.md §3, flamegraph): GMRES MGS
-reductions, SpMV MatMult, norms.  XLA already fuses the matrix-free
-stencil SpMV to one bandwidth-bound pass; these kernels exist for the
-cases where XLA's defaults lose (row-tiled stencils with explicit VMEM
-management and DMA pipelining) and as the foundation for the fused
-orthogonalization path.
+``aij_pack`` compiles an arbitrary sparsity pattern into a Clos-routed
+gather program (``clos_route`` colours its stages); ``aij_pack.aij_mv_jnp``
+applies it in plain ``jax.numpy``.  Every device operation of the
+framework is plain ``jax.numpy``/``lax`` left to XLA: no hand-written
+kernels ship here.
 """
-
-from medane_tchakorom_ufc_thesis_repository_tpu.ops.stencil_pallas import (  # noqa: F401
-    stencil2d_mv_pallas,
-    stencil3d_apply_pallas,
-    stencil3d_df_residual_pallas,
-    stencil3d_mv_cast_pallas,
-    stencil3d_mv_pallas,
-    stencil3d_prolong_jacobi_pallas,
-    stencil3d_residual_restrict_pallas,
-)
-
-from medane_tchakorom_ufc_thesis_repository_tpu.ops.fused_pallas import (  # noqa: F401
-    maxpy_pallas,
-    mdot_pallas,
-    mosaic_available,
-    pallas_enabled,
-    residual_norm_sq,
-    spmm_panel,
-    stencil2d_mv_norm_pallas,
-    stencil3d_mv_norm_pallas,
-    stencil2d_spmm_pallas,
-)
-
-from medane_tchakorom_ufc_thesis_repository_tpu.ops.bsr_pallas import (  # noqa: F401
-    bsr_mv_pallas,
-)

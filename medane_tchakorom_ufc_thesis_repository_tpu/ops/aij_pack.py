@@ -1,18 +1,17 @@
-"""AIJ pack: arbitrary-pattern sparse matrices -> Clos-routed TPU SpMV plans.
+"""AIJ pack: arbitrary-pattern sparse matrices -> Clos-routed SpMV plans.
 
 The capability analog of PETSc MatAIJ assembly + MatMult
 (``/root/reference/src/utils/utils.c:139-155``): ANY sparse matrix, no
-band/block structure assumed.  The reference leans on CSR's indirect
-addressing; TPU has no gather/scatter memory port, so the pack compiles
-the matrix's access pattern into a fixed routing program over the two
-Mosaic gather primitives (sublane / lane ``dynamic_gather``, see
+band/block structure assumed.  The pack compiles the matrix's access
+pattern into a fixed routing program over two short gathers, each
+confined to an (8, 128) block (row / column ``take_along_axis``, see
 ``ops/clos_route.py``):
 
     y = K3( D^-1( K2( D( K1(x) ) ) ) )
 
 * K1 — "chunk gather": nonzeros grouped by 1024-element x-chunk; per
-  (8, 128) block, DMA the chunk and gather each nonzero's x value into
-  the block (2 ops), then apply the first Clos stage R2 (3 ops).
+  (8, 128) block, gather the chunk and each nonzero's x value into the
+  block (2 ops), then apply the first Clos stage R2 (3 ops).
 * D  — XLA reshape-transpose ``(a, 1024) -> (1024, a)``: exchanges
   1024-element blocks with stride-1024 position classes (the "wiring"
   between Clos stages; a | 1024 keeps classes inside blocks).
@@ -23,12 +22,10 @@ Mosaic gather primitives (sublane / lane ``dynamic_gather``, see
 
 Positions are routed by König edge colorings (``clos_route.edge_color``)
 at the global level (which block each element parks in between
-transposes) and per block (which sublane it parks in between the two
-lane-column moves).  Every index map is static per matrix — pack once
+transposes) and per block (which row it parks in between the two
+column moves).  Every index map is static per matrix — pack once
 (`prepare()` lifecycle), stream the i32 maps alongside the values at
-apply time.  Traffic ≈ 7x the values-read roofline, pattern-independent
-— vs the XLA gather path's 25.6x padded temps that stop compiling at
-n >= 4096 (round-3 measurement).
+apply time.  Traffic is pattern-independent.
 
 Segments: rows are split into segments whose padded block count fits
 a <= 1024 (M <= 2^20 positions); each segment owns its routing and the
@@ -57,9 +54,8 @@ def to_wide(arr: np.ndarray, a: int) -> np.ndarray:
 
     Narrow: row ``b*8 + i``, lane ``l`` (one (8, 128) tile per block).
     Wide: row ``(b//8)*8 + i``, lane ``(b%8)*128 + l`` — 8 blocks side
-    by side in the lanes of one (8, 1024) tile, so the Mosaic sublane
-    gather (axis=0, ANY width — probe-verified) serves all 8 blocks in
-    ONE op.  Requires ``a % 8 == 0``."""
+    by side in the columns of one (8, 1024) tile, so one row gather
+    (axis=0, any width) serves all 8 blocks.  Requires ``a % 8 == 0``."""
     nsb = a // 8
     return (arr.reshape(nsb, 8, 8, 128).transpose(0, 2, 1, 3)
             .reshape(a, 1024))
@@ -505,7 +501,7 @@ def pack_aij(rows, cols, vals, shape, dtype=np.float32,
 
 
 # ---------------------------------------------------------------------------
-# Reference applies (numpy exact; jnp fallback used on CPU / pre-Mosaic)
+# Applies: numpy (exact reference) and jnp (the device path)
 # ---------------------------------------------------------------------------
 
 def _unpack_k1(idx):
@@ -568,10 +564,9 @@ def aij_mv_np(plan: AIJPlan, x: np.ndarray) -> np.ndarray:
 
 
 def aij_mv_jnp(segments, n_pad_cols: int, nrows: int, x):
-    """Pure-jnp apply (CPU tests / interpreter environments / any
-    backend without Mosaic): identical math to ``aij_mv_np`` with
-    XLA gathers over the small (…, 8, 128) axes.  ``segments`` are
-    ``operators.AIJSegment`` pytrees."""
+    """The device apply (every backend): identical math to
+    ``aij_mv_np`` with XLA gathers over the small (…, 8, 128) axes.
+    ``segments`` are ``operators.AIJSegment`` pytrees."""
     import jax
     import jax.numpy as jnp
 

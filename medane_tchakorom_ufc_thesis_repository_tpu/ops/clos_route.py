@@ -1,15 +1,12 @@
-"""Clos/Benes routing for arbitrary-pattern TPU gathers.
+"""Clos/Benes routing for arbitrary-pattern gathers built from short ones.
 
-The Mosaic gather primitives reach exactly one (8, 128) tile:
+The AIJ program moves data with two gathers, each confined to one
+(8, 128) tile:
 
-* sublane gather (``jnp.take_along_axis`` axis=0, shape (8, C)):
-  ``out[i, j] = x[idx[i, j], j]`` — moves within lane-columns, 8-row reach;
-* lane gather (axis=1, shape (R, 128)):
-  ``out[i, j] = x[i, idx[i, j]]`` — moves within rows, 128-lane reach.
-
-(Capability map measured on-chip, round 5: axis=0 requires exactly 8
-rows and allows any lane width; axis=1 requires exactly 128 lanes and
-allows any height.)
+* row gather (``jnp.take_along_axis`` axis=0, shape (8, C)):
+  ``out[i, j] = x[idx[i, j], j]`` — moves within columns, 8-row reach;
+* column gather (axis=1, shape (R, 128)):
+  ``out[i, j] = x[i, idx[i, j]]`` — moves within rows, 128-column reach.
 
 An arbitrary permutation therefore needs ROUTING.  Two classical facts
 (Clos 1953; König's edge-coloring theorem) do all the work:
@@ -27,18 +24,19 @@ An arbitrary permutation therefore needs ROUTING.  Two classical facts
 Used at two levels by the AIJ SpMV (``ops/aij_pack.py``):
 
 * block level: an arbitrary bijection within one (8, 128) tile =
-  sublane ∘ lane ∘ sublane gather ("A∘B∘A"), routed by an 8-coloring of
-  the (source lane → target lane) multigraph;
+  row ∘ column ∘ row gather ("A∘B∘A"), routed by an 8-coloring of the
+  (source column → target column) multigraph;
 * global level: a bijection over M = a·1024 elements = in-block perms +
   two XLA transposes (the ``(a, 1024) ↔ (1024, a)`` reshape-transpose
   exchanges 1024-element blocks with stride-1024 position classes),
   routed by a 1024-coloring of the (source block → target block) graph.
 
 This is the data-movement core the reference delegates to PETSc's CSR
-``MatMult`` (``/root/reference/src/utils/utils.c:139-155``); on TPU the
-hardware has no scatter/gather memory port, so the routing IS the
-algorithm.  Pure-python Euler walker here; ``native/src/clos.cpp``
-provides the O(E log Δ) C++ fast path for HBM-scale packs.
+``MatMult`` (``/root/reference/src/utils/utils.c:139-155``).  It was
+designed for hardware without a general gather; a GPU gathers natively,
+and whether a plain CSR gather beats this program is an open measurement
+(ROADMAP D2).  Pure-python Euler walker here; ``native/src/clos.cpp``
+provides the O(E log Δ) C++ fast path for large packs.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Distribution layer: device meshes, halo exchange, sharded solvers.
 
-The TPU-native replacement for the reference's entire MPI stack
+The JAX replacement for the reference's entire MPI stack
 (SURVEY.md §2.2/§5.8): communicator topology becomes a
 ``jax.sharding.Mesh`` with axes ``('block', 'intra')``, the sync
 ``MPI_Sendrecv`` halo becomes ``lax.ppermute``, norm reductions become

@@ -56,7 +56,7 @@ def make_spmd_body(
     )
     # 'publish' collection: columns recorded at publish boundaries only
     # (fresh peer data per column — fixes the AMAM staleness pathology,
-    # measured 2824 -> 144 sweeps at d=4, BENCHMARKS.md); a cycle then
+    # measured 2824 -> 144 sweeps at d=4); a cycle then
     # spans s * max(staleness) sweeps
     spc = s * int(np.asarray(stal).max()) if collect_publish else s
     # per-cycle residual-norm history (the SPMD analog of the stacked
@@ -76,8 +76,8 @@ def make_spmd_body(
         """Gram normal equations (reference ``outer_solver_cholesky``,
         ``utils.c:972-996``): one s x s psum.  Cheapest collective; loses
         ~half the working digits (kappa^2) — fatal in f32 beyond s~6."""
-        # precision='highest': TPU matmuls default to bf16 inputs, which
-        # the kappa^2-sensitive Gram cannot afford
+        # precision='highest': an unpinned f32 matmul may run in TF32 on
+        # the GPU, which the kappa^2-sensitive Gram cannot afford
         G = lax.psum(jnp.matmul(Rmat.T, Rmat, precision="highest"), axes)
         c = lax.psum(jnp.matmul(Rmat.T, tgt, precision="highest"), axes)
         return solve_gram(G, c)
@@ -116,8 +116,8 @@ def make_spmd_body(
         )
 
         lockstep = None if "block" in axes else "block"
-        # full-precision panel matvecs: TPU matmuls default to bf16
-        # inputs, which caps attainable LS accuracy far above outer.rtol
+        # full-precision panel matvecs: TF32 operands would cap the
+        # attainable LS accuracy far above outer.rtol
         res = lsqr(
             lambda a: jnp.matmul(Rmat, a, precision="highest"),
             lambda u: lax.psum(

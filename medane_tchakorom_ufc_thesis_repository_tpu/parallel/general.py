@@ -1,4 +1,4 @@
-"""Distributed general-sparse operators: MPIAIJ across ranks, TPU-style.
+"""Distributed general-sparse operators: MPIAIJ across ranks on a mesh.
 
 The reference's ``create_matrix_sparse`` builds MPIAIJ matrices whose
 row strips live on different ranks and whose matvec scatters the needed
@@ -369,16 +369,11 @@ def shard_aij_from_coo(rows, cols, vals, n: int, ndev: int,
 
 
 def _aij_local_mv(op: ShardedAIJ, plan_loc, x_full):
-    """One strip's y from the FULL x via the routed gather program
-    (Pallas on TPU, the pure-jnp twin elsewhere — same routing)."""
+    """One strip's y from the FULL x via the routed gather program."""
     from medane_tchakorom_ufc_thesis_repository_tpu.core.operators import (
         AIJSegment,
     )
-    from medane_tchakorom_ufc_thesis_repository_tpu.ops import (
-        aij_pack,
-        aij_pallas,
-        fused_pallas,
-    )
+    from medane_tchakorom_ufc_thesis_repository_tpu.ops import aij_pack
 
     (cid, k1, k2, k3, vl, yt, r2, mid, r1) = plan_loc
     seg = AIJSegment(
@@ -387,10 +382,6 @@ def _aij_local_mv(op: ShardedAIJ, plan_loc, x_full):
         yp_r1=r1[0], a=op.a, tile0=0, ntiles=op.ntiles, a_y=op.a_y,
         wide=op.wide,
     )
-    if fused_pallas.pallas_enabled():
-        interpret = jax.default_backend() != "tpu"
-        return aij_pallas.aij_mv_pallas(
-            (seg,), op.n_pad_cols, op.strip, x_full, interpret=interpret)
     return aij_pack.aij_mv_jnp((seg,), op.n_pad_cols, op.strip, x_full)
 
 

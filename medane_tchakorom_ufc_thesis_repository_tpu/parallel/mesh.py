@@ -7,9 +7,11 @@ The reference derives its topology from ``nprocs`` and ``npb``:
 same two-level structure is a ``Mesh`` with named axes:
 
 * ``'block'``  — Jacobi blocks (the reference's 2 sub-communicators);
-  on multi-host slices this axis should map across hosts/DCN.
-* ``'intra'``  — ranks within a block (the reference's ``npb``); should
-  map to chips on one host/ICI so inner-solve reductions ride ICI.
+  across processes this axis maps across hosts.
+* ``'intra'``  — ranks within a block (the reference's ``npb``).
+
+On one host the devices are all-to-all connected (NVLink joins the four
+cards of an H100 host), so the mesh follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -30,9 +32,7 @@ def make_mesh(
     """Build a ``(block, intra)`` mesh from available devices.
 
     ``intra`` defaults to ``len(devices) // nblocks`` (the analog of
-    ``npb = nprocs / njacobi_blocks``).  Device order is kept as given so
-    'intra' neighbors are adjacent in the default enumeration (consecutive
-    chips on ICI).
+    ``npb = nprocs / njacobi_blocks``).  Device order is kept as given.
     """
     devices = list(jax.devices() if devices is None else devices)
     if intra is None:
@@ -55,9 +55,9 @@ def init_multihost(
 ) -> None:
     """Initialize the multi-host JAX runtime (``jax.distributed``) — the
     analog of the reference's ``mpiexec`` fan-out over hostfiles
-    (``iSolve:347-401``, ``hostfiles/default``).  On TPU pods the
-    arguments are auto-detected from the environment; pass them
-    explicitly for CPU/GPU clusters.  Call before any other JAX API.
+    (``iSolve:347-401``, ``hostfiles/default``).  Pass the coordinator
+    address, process count and process id explicitly.  Call before any
+    other JAX API.
     """
     import jax
 
@@ -72,12 +72,11 @@ def init_multihost(
 
 
 def make_multihost_mesh(nblocks: int = 2, intra: Optional[int] = None) -> Mesh:
-    """Mesh over ALL devices of a multi-host slice, blocks across hosts.
+    """Mesh over ALL devices of a multi-process run, blocks across hosts.
 
-    Jacobi blocks map to the slower DCN/host axis and 'intra' to chips
-    within a host (ICI) — matching the reference's placement of the two
-    blocks on different Grid'5000 sites with npb ranks per site
-    (SURVEY.md §2.5).  ``jax.devices()`` enumerates host-major, so the
+    Jacobi blocks map to the host axis and 'intra' to devices within a
+    host — matching the reference's placement of the two blocks on
+    different Grid'5000 sites with npb ranks per site (SURVEY.md §2.5).  ``jax.devices()`` enumerates host-major, so the
     default ordering achieves this when ``nblocks`` divides the host
     count.
     """

@@ -84,7 +84,7 @@ class ShardedPoisson2D:
     def interior_mv(self, g):
         """Local-strip stencil, zero external halos; ``g`` is
         ``(..., rows, n)`` (possibly stacked with a leading s axis).
-        Pad+slice form — fuses to one bandwidth-bound TPU pass."""
+        Pad+slice form — fuses to one bandwidth-bound pass."""
         lead = len(g.shape) - 2
         p = jnp.pad(g, ((0, 0),) * lead + ((1, 1), (1, 1)))
         sl = (slice(None),) * lead
@@ -179,7 +179,7 @@ def make_full_mv(opcfg, ni: int, nb: int):
     in flight, and only then consume the halos.  The
     ``optimization_barrier`` pins that order — XLA's latency-hiding
     scheduler places collective-permute-start before the interior fusion
-    and collective-permute-done after it, so ICI transfer time hides
+    and collective-permute-done after it, so the transfer time hides
     under the interior stencil pass.
     """
     off = opcfg.off
@@ -284,7 +284,8 @@ def sharded_ca_gmres_solve(
     """Communication-avoiding whole-mesh GMRES: ONE collective per s
     matvecs (``reductions='single'``) instead of GMRES's 2-4 psums per
     iteration.  This is CA-GMRES's actual target deployment: on a device
-    mesh every reduction is an ICI/DCN round-trip on the critical path,
+    mesh every reduction is a round-trip between devices on the critical
+    path,
     and the Newton-basis reformulation amortizes s matvecs' worth of
     orthogonalization into one ``(s+1) x (s+1)`` Gram psum
     (``solvers/castep.py``; Hoemmen 2010).  Spectral interval defaults

@@ -3,8 +3,8 @@
 The reference (and ``parallel.sharded``) split the grid along the leading
 axis only — fine at small scale, but strips get thin as devices grow and
 halo traffic scales with the full cross-section.  These drivers tile each
-Jacobi block's band in TWO directions, matching TPU slices' physical 2D
-torus:
+Jacobi block's band in TWO directions, so halo traffic per device scales
+with the tile perimeter:
 
 * ``'block'`` — Jacobi blocks (leading-axis bands, as always);
 * ``'ir'``    — leading-axis tiles within a block;
@@ -407,7 +407,7 @@ def tiled_gmres_solve(
 ):
     """Whole-system GMRES over the 2-D-tiled ``('block','ir','ic')``
     mesh — the ``gmres_solution`` baseline (reference
-    ``gmres_solution.c:58-91``) with the torus-friendly tiling: halo
+    ``gmres_solution.c:58-91``) with the 2-D tiling: halo
     traffic per device scales with the tile PERIMETER instead of the
     full grid cross-section of the 1-D strip split
     (``sharded_gmres_solve``).  Reductions psum over all three axes;

@@ -16,8 +16,8 @@ from the matrix graph alone — Vanek smoothed aggregation:
      ``omega = 4 / (3 rho(D^{-1} A))`` (power-iteration estimate),
   5. Galerkin ``A_{k+1} = P^T A_k P``, recurse to a dense coarse solve.
 
-TPU-first apply design
-----------------------
+Apply design
+------------
 * The V-cycle is a PYTREE program: a static tuple of levels unrolled in
   Python, so the whole PCG-with-AMG solve jits into one XLA program
   (no host round-trips per cycle) and the preconditioner travels as an
@@ -25,16 +25,14 @@ TPU-first apply design
 * Smoothing is damped Jacobi (one routed SpMV + an elementwise update
   per step) — symmetric, collective-free, and the same pre/post count
   keeps the cycle SPD, so it is a valid ``cg``/``minres`` preconditioner.
-* P / P^T applies are gather-ELL matvecs.  Gathers are the slow path
-  for LEVEL operators (139x off slice speed, BENCHMARKS.md), but the
-  transfers touch each stored value once per cycle against vectors a
-  level smaller — the level SpMV (routed DIA/BSR/dense) dominates.
-  P^T is stored as its OWN row-major ELL pack built host-side: no
-  device scatter-add transposes anywhere (the construct this repo
-  measured as TPU-pathological).
-* The dense coarse inverse is applied as one MXU matmul at
-  ``precision=HIGHEST`` (TPU default matmul precision truncates f32
-  operands to bf16 — the repo's hard-won MG-transfer lesson).
+* P / P^T applies are gather-ELL matvecs.  The transfers touch each
+  stored value once per cycle against vectors a level smaller — the
+  level SpMV (routed DIA/BSR/dense) dominates.  P^T is stored as its
+  OWN row-major ELL pack built host-side: no device scatter-add
+  transposes anywhere.
+* The dense coarse inverse is applied as one matmul at
+  ``precision=HIGHEST`` (an unpinned f32 matmul may run in TF32 on the
+  GPU, about three decimal digits).
 """
 
 from __future__ import annotations

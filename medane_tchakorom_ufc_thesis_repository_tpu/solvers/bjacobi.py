@@ -4,11 +4,11 @@ The reference exposes PETSc's whole PC zoo through ``-inner_pc_type`` /
 ``-outer_pc_type`` (``iSolve:78-83``, wired in ``initializeKSP``,
 ``src/utils/utils.c:511-530``); on MPI matrices PETSc's workhorse there
 is PCBJACOBI — per-process diagonal blocks solved by local ILU/LU
-triangular sweeps.  Sequential triangular solves don't map to TPU (they
-serialize the VPU), so the TPU-native analog inverts the ``(bs, bs)``
+triangular sweeps.  Sequential triangular solves serialize on a
+data-parallel device, so this analog inverts the ``(bs, bs)``
 diagonal blocks ONCE at setup (host-side, f64) and applies
 ``z = blkdiag(B_k^{-1}) r`` as a single batched ``(nb, bs, bs) @ (nb, bs)``
-contraction — one MXU-shaped einsum per application, no data-dependent
+contraction — one batched einsum per application, no data-dependent
 control flow, jit/vmap/shard_map-safe.
 
 Accuracy note: an explicit inverse is backward-stable enough for a
@@ -54,8 +54,8 @@ class BlockJacobi:
         nb, bs, _ = self.inv_blocks.shape
         rp = jnp.pad(r, (0, nb * bs - self.n)) if nb * bs != self.n else r
         rb = rp.reshape(nb, bs)
-        # values matter (this steers Krylov directions): keep operands f32
-        # on TPU rather than the default bf16 truncation
+        # values matter (this steers Krylov directions): full f32, not
+        # the TF32 an unpinned f32 contraction may get on the GPU
         z = jnp.einsum(
             "bij,bj->bi", self.inv_blocks, rb,
             precision=jax.lax.Precision.HIGHEST,

@@ -11,7 +11,7 @@ block first and orthogonalizes once:
   2. the shifted recurrence gives ``A k̂_j = (σ_{j+1}/σ_j) k̂_{j+1}
      + θ_j k̂_j`` exactly, so the projected LS ``min ‖r − A K_s y‖``
      becomes a tall-skinny least-squares over explicitly known columns —
-     one QR of an ``(n, s)`` panel (BLAS-3, MXU-friendly) instead of s
+     one QR of an ``(n, s)`` panel (BLAS-3) instead of s
      Gram-Schmidt sweeps;
   3. ``x += K_s y``; restart.
 
@@ -148,16 +148,18 @@ def ca_gmres(
 
         _, W_rest = lax.scan(step, r, theta)
         W = jnp.concatenate([r[None, :], W_rest], axis=0)      # (s+1, n)
-        # full-precision Gram: TPU matmuls default to bf16 inputs, which
-        # destroys the κ(W)²-sensitive Gram (measured NaN at s=6 f32
-        # with default precision, fine at 'highest')
+        # full-precision Gram: reduced-precision operands (TF32 for an
+        # unpinned f32 matmul on the GPU) destroy the κ(W)²-sensitive
+        # Gram
         G = psum(jnp.matmul(W, W.T, precision="highest"))      # ONE psum
         # A ŵ_j = capacity ŵ_{j+1} + θ_j ŵ_j  =>  C = B @ W with
         # B[j] = capacity e_{j+1} + θ_j e_j  (s, s+1) — small, replicated
         B = (capacity * jnp.eye(s, s + 1, k=1, dtype=dtype)
              + theta[:, None] * jnp.eye(s, s + 1, dtype=dtype))
-        Gc = B @ G @ B.T                                       # C Cᵀ
-        c = B @ G[:, 0]                                        # C r
+        hi = "highest"
+        Gc = jnp.matmul(jnp.matmul(B, G, precision=hi), B.T,
+                        precision=hi)                          # C Cᵀ
+        c = jnp.matmul(B, G[:, 0], precision=hi)               # C r
         jitter = jnp.finfo(dtype).eps * (jnp.trace(Gc) / s + 1.0)
         ch, low = jax.scipy.linalg.cho_factor(
             Gc + jitter * jnp.eye(s, dtype=dtype), lower=True
@@ -166,7 +168,8 @@ def ca_gmres(
         x_new = x + jnp.matmul(W[:s].T, y, precision="highest")
         # residual norm via Gram algebra (no extra reduction); fp
         # cancellation can drive the small value slightly negative
-        rsq = G[0, 0] - 2.0 * jnp.dot(y, c) + y @ Gc @ y
+        rsq = (G[0, 0] - 2.0 * jnp.dot(y, c, precision=hi)
+               + jnp.dot(y, jnp.matmul(Gc, y, precision=hi), precision=hi))
         rnorm_new = jnp.sqrt(jnp.maximum(rsq, 0.0))
 
         # κ(W)² flows through the Gram: when the scaled basis still
@@ -224,9 +227,8 @@ def ca_gmres(
                 safe, jnp.matmul(q.T, r, precision="highest"), 0.0)
             y = jax.scipy.linalg.solve_triangular(rr, qtr, lower=False)
         else:
-            # full precision: TPU matmuls default to bf16 operands — the
-            # kappa(W)^2-sensitive Gram cannot survive that (see
-            # cycle_single's measured note)
+            # full precision: the kappa(W)^2-sensitive Gram cannot survive
+            # TF32 operands (see cycle_single)
             G = psum(jnp.matmul(C, C.T, precision="highest"))  # (s, s)
             c = psum(jnp.matmul(C, r, precision="highest"))
             jitter = jnp.finfo(dtype).eps * (jnp.trace(G) / s + 1.0)

@@ -10,8 +10,8 @@ inherently static, so it is SPMD-lockstep by construction (no
 ``fixed_cycles`` masking needed).
 
 The reference has no Chebyshev option (PETSc has ``-ksp_type chebyshev``
-but the thesis never uses it); this is a TPU-first addition for the
-multi-chip inner solve.
+but the thesis never uses it); this is an addition for the multi-device
+inner solve.
 
 Applicability: with full-interval analytic bounds the method needs
 ``O(sqrt(kappa))`` iterations — fine for small/preconditioned blocks
@@ -124,5 +124,6 @@ def estimate_eig_bounds(matvec: Callable, n: int, dtype=jnp.float32,
         return w / jnp.linalg.norm(w)
 
     v = lax.fori_loop(0, iters, body, v / jnp.linalg.norm(v))
-    lmax = float(jnp.vdot(v, matvec(v)) / jnp.vdot(v, v)) * safety
+    lmax = float(jnp.vdot(v, matvec(v), precision="highest")
+                 / jnp.vdot(v, v, precision="highest")) * safety
     return lmax / 30.0, lmax

@@ -1,19 +1,15 @@
-"""Double-float (two-f32) arithmetic for f64-accurate residuals on TPU.
+"""Double-float (two-f32) arithmetic for f64-accurate residuals.
 
-TPU v5e has no f64 hardware; ``jax_enable_x64`` falls back to software
-emulation that is COMPUTE-pathological (measured: one 256^3 stencil
-residual pass = 0.86 s emulated vs ~0.5 ms of actual memory traffic —
-~1700x).  Iterative refinement, however, only needs the *residual* to be
-accurate to ~1e-12; the classic compensated-arithmetic answer is
-double-float: represent each value as an unevaluated sum ``hi + lo`` of
-two f32s (~2^-48 ≈ 4e-15 effective relative precision) and use
-error-free transformations (Knuth two-sum) for every addition.
-
-This is TPU-native mixed precision in its purest form: every operation
-is a native-f32 VPU op, the whole residual pass stays a fused
-bandwidth-bound kernel (hi/lo stream = 2x the f32 traffic, ~1000x
-cheaper than emulated f64), and the numerics are proven (Dekker 1971,
-Knuth TAOCP v2).
+Iterative refinement only needs the *residual* to be accurate to
+~1e-12, while the solves run in f32.  The classic compensated-arithmetic
+answer is double-float: represent each value as an unevaluated sum
+``hi + lo`` of two f32s (~2^-48 ≈ 4e-15 effective relative precision) and
+use error-free transformations (Knuth two-sum) for every addition.  Every
+operation is a native f32 op, the whole residual pass stays one fused
+bandwidth-bound expression (the hi/lo pair moves 8 bytes per element, as
+native f64 would), and the numerics are proven (Dekker 1971, Knuth TAOCP
+v2).  Whether native f64 residuals tie this on the device is an open
+measurement; until then the df form is the only refinement residual.
 
 Scope: the Poisson stencil family's residual ``r = b - A x`` (the only
 f64-grade computation the refinement loop needs) plus the df solution
@@ -23,8 +19,8 @@ update.  Stencil coefficient products are exact or 1-ulp-compensated:
 
 CAUTION (XLA): error-free transforms die if the compiler reassociates or
 fast-maths the float graph.  XLA does not reassociate adds by default
-and this module's tests pin the achieved precision on both CPU and TPU;
-if a future XLA flag enables fast-math, ``test_df64`` will catch it.
+and this module's tests pin the achieved precision; if a future XLA flag
+enables fast-math, ``test_df64`` will catch it.
 """
 
 from __future__ import annotations
@@ -199,85 +195,15 @@ def _df_residual_core_3d(phi, plo, bhi_s, blo_s, diag: float, off: float):
 
 
 def stencil3d_df_residual(nx: int, ny: int, nz: int, diag: float, off: float):
-    """As ``stencil2d_df_residual`` for the 3D 7-point stencil.
+    """As ``stencil2d_df_residual`` for the 3D 7-point stencil."""
 
-    HBM-scale grids (above the same ~100 MB residency cutoff as
-    ``Stencil3D.mv``) route through an x-slab loop: the whole-array form
-    pads TWO 537 MB arrays at 512^3 and XLA splits the tap sums into
-    sibling fusions re-reading them — measured 13.7 ms vs the ~4 ms
-    traffic floor.  Slab windows carry one neighbor plane each side
-    (concat, not post-add — two_sum is nonlinear), so the EFT tree runs
-    unchanged per slab and results are bit-identical."""
-    from jax import lax
-
-    from medane_tchakorom_ufc_thesis_repository_tpu.core.operators import (
-        _VMEM_RESIDENT_BYTES,
-        _slab_planes,
-    )
-
-    def residual_whole(b: DF, x: DF) -> DF:
+    def residual(b: DF, x: DF) -> DF:
         xhi, xlo = x
         phi = jnp.pad(xhi, 1)
         plo = jnp.pad(xlo, 1)
         return _df_residual_core_3d(phi, plo, b[0], b[1], diag, off)
 
-    nbytes = 4 * nx * ny * nz
-    if nbytes <= _VMEM_RESIDENT_BYTES:
-        return residual_whole
-    sl = _slab_planes(nx, ny * nz * 4)
-    if sl >= nx:
-        return residual_whole
-
-    def residual_routed(b: DF, x: DF) -> DF:
-        """HBM scale: the Mosaic df-residual kernel when it compiles
-        (one streaming pass over the four operands — the XLA slab form
-        re-reads windows across its sibling fusions), else the slab
-        loop.  Same EFT operation tree either way (bit-identical,
-        ``tests/test_pallas.py``)."""
-        from medane_tchakorom_ufc_thesis_repository_tpu.ops import (
-            fused_pallas,
-            stencil_pallas,
-        )
-
-        if ny % 8 == 0 and nx % 4 == 0 and fused_pallas.pallas_enabled():
-            rhi, rlo = stencil_pallas.stencil3d_df_residual_pallas(
-                x[0], x[1], b[0], b[1], nx=nx, ny=ny, nz=nz,
-                diag=diag, off=off)
-            return rhi, rlo
-        return residual_slab(b, x)
-
-    def residual_slab(b: DF, x: DF) -> DF:
-        bhi, blo = b
-        xhi, xlo = x
-        zero_plane = jnp.zeros((1, ny, nz), xhi.dtype)
-
-        def window(g, start):
-            s = lax.dynamic_slice(g, (start, 0, 0), (sl, ny, nz))
-            up = lax.dynamic_slice(
-                g, (jnp.maximum(start - 1, 0), 0, 0), (1, ny, nz))
-            up = jnp.where(start == 0, zero_plane, up)
-            dn = lax.dynamic_slice(
-                g, (jnp.minimum(start + sl, nx - 1), 0, 0), (1, ny, nz))
-            dn = jnp.where(start + sl >= nx, zero_plane, dn)
-            w = jnp.concatenate([up, s, dn], axis=0)
-            return jnp.pad(w, ((0, 0), (1, 1), (1, 1)))
-
-        def body(i, out):
-            rhi, rlo = out
-            start = i * sl
-            phi = window(xhi, start)
-            plo = window(xlo, start)
-            bh = lax.dynamic_slice(bhi, (start, 0, 0), (sl, ny, nz))
-            bl = lax.dynamic_slice(blo, (start, 0, 0), (sl, ny, nz))
-            sh, slo_ = _df_residual_core_3d(phi, plo, bh, bl, diag, off)
-            rhi = lax.dynamic_update_slice(rhi, sh, (start, 0, 0))
-            rlo = lax.dynamic_update_slice(rlo, slo_, (start, 0, 0))
-            return rhi, rlo
-
-        init = (jnp.empty_like(xhi), jnp.empty_like(xlo))
-        return lax.fori_loop(0, nx // sl, body, init)
-
-    return residual_routed
+    return residual
 
 
 def _df_combine(hi, lo, coeff: float) -> DF:

@@ -5,7 +5,7 @@ spectral interval ``[lmin, lmax]``.  The Poisson strip operators carry
 analytic bounds (``diag_eig_bounds``); user (AIJ) matrices do not — the
 reference inherits this from PETSc, whose ``KSPChebyshev`` runs a few
 GMRES iterations to estimate the interval (``-ksp_chebyshev_esteig``).
-Here the TPU-idiomatic equivalent: a fixed-trip-count Lanczos recurrence
+Here the jit-friendly equivalent: a fixed-trip-count Lanczos recurrence
 (matvec + whole-basis matmuls per step — one jitted ``lax.scan``, no
 data-dependent control flow) whose extreme Ritz values converge to the
 extreme eigenvalues first, safety-widened exactly like PETSc's default
@@ -56,10 +56,11 @@ def lanczos_coeffs(mv: Callable, v0: jax.Array, m: int):
         w = mv(v)
         # rows > j of V are zero, so one pair of whole-basis matmuls
         # orthogonalizes against every previous vector (CGS + re-pass)
-        h = V @ w
-        w = w - V.T @ h
-        h2 = V @ w
-        w = w - V.T @ h2
+        hi = jax.lax.Precision.HIGHEST
+        h = jnp.matmul(V, w, precision=hi)
+        w = w - jnp.matmul(V.T, h, precision=hi)
+        h2 = jnp.matmul(V, w, precision=hi)
+        w = w - jnp.matmul(V.T, h2, precision=hi)
         alpha = h[j] + h2[j]
         beta = jnp.sqrt(jnp.sum(w * w))
         vnext = jnp.where(beta > 0, w / jnp.where(beta > 0, beta, 1.0), w)

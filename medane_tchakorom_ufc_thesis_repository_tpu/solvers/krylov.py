@@ -5,18 +5,21 @@ These replace the PETSc KSP objects the reference configures in
 ``inner_solver`` (``utils.c:950-970``) and the ``gmres_solution`` baseline
 (``src/gmres_solution/gmres_solution.c:58-91``).
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 * The reference's measured hotspot is GMRES orthogonalization — PETSc
   ``VecMDot``/``VecMAXPY`` (SURVEY.md §3, flamegraph).  Here the whole
   Gram-Schmidt step is two matmuls against the stacked basis
   ``V (m+1, n)``: ``h = V @ w`` and ``w -= V.T @ h`` — classical
-  Gram-Schmidt (PETSc's default orthogonalization), which XLA tiles onto
-  the MXU.  Zero-initialized unused basis rows make masking implicit.
+  Gram-Schmidt (PETSc's default orthogonalization), which XLA hands to
+  cuBLAS.  Zero-initialized unused basis rows make masking implicit.
+* Every inner product and basis contraction is pinned to
+  ``Precision.HIGHEST``: an unpinned f32 contraction may run in TF32 on
+  the GPU and skew the recurrences and the convergence tests.
 * Everything is fixed-shape: ``lax.while_loop`` over restart cycles,
   ``lax.fori_loop`` over Arnoldi steps, masked updates after convergence —
   so the solver jits once and also batches with ``vmap`` over a leading
-  block axis (the single-chip analog of the reference's two concurrent
+  block axis (the single-device analog of the reference's two concurrent
   per-block KSPSolves).
 * Convergence matches PETSc's default test with UIRNorm (used by
   ``inner_solver``): stop when ``||r_k|| <= max(rtol * ||r_0||, atol)``
@@ -31,6 +34,15 @@ from typing import Callable, Optional
 import jax
 import jax.numpy as jnp
 from jax import lax
+
+HIGHEST = lax.Precision.HIGHEST
+
+
+def _vdot(a, b):
+    """Inner product at full f32 precision.  An unpinned f32 contraction
+    may run in TF32 on the GPU (about three decimal digits), which skews
+    every recurrence coefficient and convergence test built on it."""
+    return jnp.vdot(a, b, precision=HIGHEST)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,8 +112,8 @@ def gmres(
 
     ``orthog``: ``"cgs"`` = single-pass classical Gram-Schmidt (PETSc's
     default, fine in f64); ``"cgs2"`` = two-pass CGS (default — needed for
-    a trustworthy Givens residual estimate in f32/bf16 on TPU; still pure
-    matmuls on the MXU).
+    a trustworthy Givens residual estimate in f32/bf16; still pure
+    matmuls).
 
     ``axis_name``: mesh axis name(s) to ``psum`` reductions over — pass
     when calling under ``shard_map`` with ``b``/``x`` row-sharded.  The
@@ -124,9 +136,8 @@ def gmres(
     # Floor of 1 keeps maxiter=0 a graceful no-op (zero-width H would
     # fail to trace).
     m = max(1, min(restart, maxiter))
-    # x0 = 0 => r0 = b EXACTLY: skip the initial matvec (a Pallas
-    # stencil apply is an opaque kernel XLA cannot fold on zeros, and
-    # even the XLA form costs a full memory pass at HBM scale)
+    # x0 = 0 => r0 = b EXACTLY: skip the initial matvec (a full memory
+    # pass on large grids)
     x0_zero = x0 is None
     if x0 is None:
         x0 = jnp.zeros_like(b)
@@ -183,13 +194,13 @@ def gmres(
             def vdot_mat(M, v):
                 return jax.lax.dot_general(
                     M, v.astype(vdtype), (((1,), (0,)), ((), ())),
-                    preferred_element_type=dtype,
+                    preferred_element_type=dtype, precision=HIGHEST,
                 )
 
             def vtdot(M, hv):
                 return jax.lax.dot_general(
                     M.T, hv.astype(vdtype), (((1,), (0,)), ((), ())),
-                    preferred_element_type=dtype,
+                    preferred_element_type=dtype, precision=HIGHEST,
                 )
 
             h = psum(vdot_mat(V, w))       # (m+1,)
@@ -218,8 +229,8 @@ def gmres(
             # Statically unrolled: slots >= j hold the identity rotation
             # (cs=1, sn=0), so all m-1 steps can run unconditionally as
             # straight-line fused code — a dynamic fori_loop of tiny
-            # serial ops costs ~100x its FLOPs in per-step loop overhead
-            # on TPU.  Rows j+1.. of hcol are zero, so identity slots
+            # serial ops costs far more than its FLOPs in per-step loop
+            # overhead.  Rows j+1.. of hcol are zero, so identity slots
             # leave the column unchanged.
             for i in range(m - 1):
                 t1 = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
@@ -271,7 +282,7 @@ def gmres(
         )
         x_new = x + jax.lax.dot_general(
             V[:m].T, y.astype(vdtype), (((1,), (0,)), ((), ())),
-            preferred_element_type=dtype,
+            preferred_element_type=dtype, precision=HIGHEST,
         )
         return x_new, iters, rnorm, converged, beta, diverged
 
@@ -318,19 +329,16 @@ def cg(
     divtol: float = 1e5,
     matvec_dot: Optional[Callable] = None,
     precond_dot: Optional[Callable] = None,
-    matvec_axpy_dot: Optional[Callable] = None,
 ) -> KrylovResult:
     """Conjugate gradients for SPD systems (the reference's outer-CG config,
     ``config/default_run_variables`` outer ksp_type cg).
 
     ``matvec_dot``: optional fused ``p -> (A p, p · A p)`` (LOCAL dot —
-    it is still ``psum``-reduced here).  ``Stencil3D.mv_dot`` computes
-    the dot on-core while the Pallas apply streams, removing the
-    separate two-read reduction pass of CG's MatMult+VecTDot pair at
-    HBM scale (the reference's back-to-back MatMult/VecTDot hotspot,
-    ``/root/reference/tmp/function-calling-stack:1-60``).  Must return
-    bit-identical ``A p`` and a dot consistent with
-    ``jnp.vdot(p, A p)`` up to reduction order.
+    it is still ``psum``-reduced here).  ``Stencil3D.mv_dot`` writes the
+    dot beside the apply so XLA can fuse the two (the reference's
+    back-to-back MatMult/VecTDot hotspot).  Must return bit-identical
+    ``A p`` and a dot consistent with ``jnp.vdot(p, A p)`` up to
+    reduction order.
 
     ``divtol``: divergence cutoff (PETSc KSPConvergedDefault divtol 1e5,
     same convention as ``gmres``): stop iterating when the recurrence
@@ -345,16 +353,9 @@ def cg(
 
     ``precond_dot``: optional fused ``r -> (z, r · z)`` (LOCAL dot —
     ``psum``-reduced here), the preconditioner twin of ``matvec_dot``:
-    ``mg_preconditioner(op, return_rdot=True)`` accumulates PCG's
-    post-cycle ``vdot(r, z)`` inside the cycle's final Pallas smoothing
-    kernel, removing the separate two-array reduction pass (~1.3 ms at
-    512^3).  Takes precedence over ``precond`` when both are given.
-
-    ``matvec_axpy_dot``: optional fused ``(z, p, beta) -> (p', A p',
-    p' · A p')`` with ``p' = z + beta p`` (``Stencil3D.axpy_mv_dot``) —
-    the direction update rides the matvec's streaming pass (four HBM
-    streams instead of six at 512^3).  Single-device path only; takes
-    precedence over ``matvec_dot`` for the direction matvec.
+    ``mg_preconditioner(op, return_rdot=True)`` computes PCG's
+    post-cycle ``vdot(r, z)`` beside the cycle's final smoothing sweep.
+    Takes precedence over ``precond`` when both are given.
     """
     dtype = b.dtype
     psum = make_reducer(axis_name)
@@ -373,7 +374,7 @@ def cg(
         M = lambda v: v                   # noqa: E731
     # x0 = 0 => r0 = b exactly; skip the initial matvec (see gmres)
     r = b if x0_zero else b - matvec(x0)
-    rs0 = psum(jnp.vdot(r, r))
+    rs0 = psum(_vdot(r, r))
     beta0 = jnp.sqrt(rs0)
     rnorm0_ = beta0 if rnorm0 is None else jnp.asarray(rnorm0, dtype)
     tol = _tol(jnp.asarray(rtol, dtype), jnp.asarray(atol, dtype), rnorm0_)
@@ -391,7 +392,7 @@ def cg(
             ap, pap_loc = matvec_dot(p)
             return ap, psum(pap_loc)
         ap = matvec(p)
-        return ap, psum(jnp.vdot(p, ap))
+        return ap, psum(_vdot(p, ap))
 
     if axis_name is None:
         # single-device order: the preconditioner runs at the START of
@@ -408,21 +409,17 @@ def cg(
                 rz_new = psum(rz_loc.astype(dtype))
             else:
                 z = M(r)
-                rz_new = psum(jnp.vdot(r, z))
+                rz_new = psum(_vdot(r, z))
             beta = jnp.where(
                 jnp.logical_and(iters > 0, rz != 0),
                 rz_new / jnp.where(rz != 0, rz, 1.0), 0.0)
-            if matvec_axpy_dot is not None:
-                p, ap, pap_loc = matvec_axpy_dot(z, p, beta)
-                pap = psum(pap_loc.astype(dtype))
-            else:
-                p = z + beta * p
-                ap, pap = mvd(p)
+            p = z + beta * p
+            ap, pap = mvd(p)
             alpha = jnp.where(
                 pap != 0, rz_new / jnp.where(pap != 0, pap, 1.0), 0.0)
             x = x + alpha * p
             r = r - alpha * ap
-            rs_new = psum(jnp.vdot(r, r))
+            rs_new = psum(_vdot(r, r))
             return x, r, p, rz_new, rs_new, iters + 1
 
         init = (x0, r, jnp.zeros_like(b), jnp.asarray(1.0, dtype),
@@ -443,14 +440,14 @@ def cg(
             r = r - alpha * ap
             z = M(r)
             rz_new, rs_new = psum(
-                jnp.stack([jnp.vdot(r, z), jnp.vdot(r, r)]))
+                jnp.stack([_vdot(r, z), _vdot(r, r)]))
             beta = jnp.where(
                 rz != 0, rz_new / jnp.where(rz != 0, rz, 1.0), 0.0)
             p = z + beta * p
             return x, r, p, rz_new, rs_new, iters + 1
 
         z0 = M(r)
-        rz, rs = psum(jnp.stack([jnp.vdot(r, z0), jnp.vdot(r, r)]))
+        rz, rs = psum(jnp.stack([_vdot(r, z0), _vdot(r, r)]))
         x, r, _, rz, rs, iters = lax.while_loop(
             cond, body, (x0, r, z0, rz, rs, jnp.zeros((), jnp.int32))
         )
@@ -484,7 +481,7 @@ def bicgstab(
 
     Short recurrences: O(1) memory vs GMRES's restart-length basis, two
     matvecs + a handful of dots per iteration, all inside one
-    ``lax.while_loop`` (TPU-lockstep-safe via ``axis_name`` psums like
+    ``lax.while_loop`` (SPMD-lockstep-safe via ``axis_name`` psums like
     ``cg``/``gmres``).  ``iters`` counts MATVECS (two per BiCGStab step)
     so budgets compare 1:1 with GMRES iteration counts.
 
@@ -510,14 +507,14 @@ def bicgstab(
     # right-PC: iterate y with x = M y; r0 = b - A x0 either way
     # (x0 = 0 => r0 = b exactly; skip the matvec, see gmres)
     r = b if x0_zero else b - matvec(x0)
-    beta0 = jnp.sqrt(psum(jnp.vdot(r, r)))
+    beta0 = jnp.sqrt(psum(_vdot(r, r)))
     rnorm0_ = beta0 if rnorm0 is None else jnp.asarray(rnorm0, dtype)
     tol = _tol(jnp.asarray(rtol, dtype), jnp.asarray(atol, dtype), rnorm0_)
     rhat = r     # fixed shadow vector r~0 = r0 (the standard choice)
 
     def body(carry):
         y, r, p, v, rho, alpha, omega, rs, iters, broke = carry
-        rho_new = psum(jnp.vdot(rhat, r))
+        rho_new = psum(_vdot(rhat, r))
         ok_rho = jnp.abs(rho_new) > 0
         beta = jnp.where(
             ok_rho & (jnp.abs(rho) > 0) & (jnp.abs(omega) > 0),
@@ -527,14 +524,14 @@ def bicgstab(
         )
         p = r + beta * (p - omega * v)
         v = amv(p)
-        rhv = psum(jnp.vdot(rhat, v))
+        rhv = psum(_vdot(rhat, v))
         ok_a = jnp.abs(rhv) > 0
         alpha = jnp.where(ok_a, rho_new / jnp.where(ok_a, rhv, 1.0), 0.0)
         s = r - alpha * v
         t = amv(s)
         # one fused reduction for the three stabilization dots
         ts, tt, ss = psum(jnp.stack([
-            jnp.vdot(t, s), jnp.vdot(t, t), jnp.vdot(s, s)]))
+            _vdot(t, s), _vdot(t, t), _vdot(s, s)]))
         ok_w = tt > 0
         omega = jnp.where(ok_w, ts / jnp.where(ok_w, tt, 1.0), 0.0)
         y = y + alpha * p + omega * s
@@ -555,7 +552,7 @@ def bicgstab(
 
     one = jnp.ones((), dtype)
     init = (jnp.zeros_like(b), r, jnp.zeros_like(b), jnp.zeros_like(b),
-            one, one, one, psum(jnp.vdot(r, r)),
+            one, one, one, psum(_vdot(r, r)),
             jnp.zeros((), jnp.int32), jnp.asarray(False))
     y, r, *_, rs, iters, _ = lax.while_loop(cond, body, init)
     x = x0 + M(y) if precond is not None else x0 + y
@@ -614,7 +611,7 @@ def minres(
     r1 = b if x0_zero else b - matvec(x0)
     y0 = M(r1)
     beta1sq, rtrue0sq = psum(
-        jnp.stack([jnp.vdot(r1, y0), jnp.vdot(r1, r1)]))
+        jnp.stack([_vdot(r1, y0), _vdot(r1, r1)]))
     # an indefinite M makes the Lanczos inner product invalid — freeze
     # immediately (reported NOT converged) instead of sqrt(negative).
     # beta1sq == 0 with a NONZERO residual is the same breakdown (e.g.
@@ -635,11 +632,11 @@ def minres(
         # r1_ = r2, so the correction term is a harmless scaled self)
         yk = yk - jnp.where(oldb > 0, beta / jnp.where(oldb > 0, oldb, 1.0),
                             0.0) * r1_
-        alfa = psum(jnp.vdot(v, yk))
+        alfa = psum(_vdot(v, yk))
         yk = yk - (alfa / jnp.where(ok_b, beta, 1.0)) * r2
         r1n, r2n = r2, yk
         yn = M(yk)
-        betasq = psum(jnp.vdot(r2n, yn))
+        betasq = psum(_vdot(r2n, yn))
         ok_m = betasq >= 0
         oldb_n = beta
         beta_n = jnp.sqrt(jnp.where(ok_m, betasq, 0.0))

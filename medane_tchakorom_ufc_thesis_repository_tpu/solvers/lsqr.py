@@ -4,8 +4,8 @@ The reference's outer (minimization) stage solves ``min_a ||rhs - R a||``
 with PETSc KSPLSQR / KSPCGNE on the tall-skinny ``R = A @ S``
 (``outer_solver_lsqr`` ``src/utils/utils.c:998-1020``, ``outer_solver_cgne``
 ``utils.c:1022-1043``).  R here is ``(n, s)`` with s ~ 4..30, so each LSQR
-iteration is one tall-skinny matvec + one rmatvec — both map to skinny
-matmuls on the MXU when R is dense.
+iteration is one tall-skinny matvec + one rmatvec — both skinny matmuls
+when R is dense.
 
 Pure-JAX fixed-shape loops, vmappable over a leading block axis.
 """

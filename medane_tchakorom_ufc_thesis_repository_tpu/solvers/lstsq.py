@@ -1,11 +1,11 @@
 """Direct tall-skinny least-squares kernels.
 
 The minimization stages solve ``min_a ||rhs - R a||`` where ``R`` is
-``(n, s)`` with tiny ``s`` (4..30).  On TPU the right move is NOT an
-iterative KSP loop but one fused panel reduction:
+``(n, s)`` with tiny ``s`` (4..30).  On a data-parallel device the right
+move is NOT an iterative KSP loop but one fused panel reduction:
 
-* ``lstsq_normal`` — form the s x s Gram matrix ``R^T R`` (one MXU matmul)
-  and Cholesky-solve.  This is the TPU-native version of the reference's
+* ``lstsq_normal`` — form the s x s Gram matrix ``R^T R`` (one matmul)
+  and Cholesky-solve.  This is the direct version of the reference's
   ``outer_solver`` / ``outer_solver_norm_equation`` (explicit ``R^T R`` +
   CG, ``src/utils/utils.c:972-996,1061-1078``) with the iterative solve
   collapsed to a direct s x s factorization.
@@ -27,8 +27,8 @@ def lstsq_normal(R: jax.Array, rhs: jax.Array, l2: float = 0.0) -> jax.Array:
     ``l2`` adds Tikhonov damping (guards rank-deficient bases, e.g. when
     the multisplitting iterates stagnate and S columns become parallel).
     """
-    # HIGHEST: TPU default matmul precision truncates f32 operands to
-    # bf16 (~1e-2) — on a Gram matrix the VALUES matter (CLAUDE.md trap)
+    # HIGHEST: an unpinned f32 matmul may run in TF32 (~1e-3) on the
+    # GPU — on a Gram matrix the VALUES matter
     hi = jax.lax.Precision.HIGHEST
     g = jnp.matmul(R.T, R, precision=hi)
     if l2:
@@ -49,5 +49,5 @@ def lstsq_qr(R: jax.Array, rhs: jax.Array) -> jax.Array:
     diag = jnp.diagonal(r)
     safe = jnp.abs(diag) > jnp.finfo(R.dtype).eps * jnp.max(jnp.abs(diag))
     r = r + jnp.diag(jnp.where(safe, 0.0, 1.0).astype(R.dtype))
-    y = q.T @ rhs
+    y = jnp.matmul(q.T, rhs, precision=jax.lax.Precision.HIGHEST)
     return jax.scipy.linalg.solve_triangular(r, jnp.where(safe, y, 0.0), lower=False)

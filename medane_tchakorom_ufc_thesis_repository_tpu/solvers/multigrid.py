@@ -2,20 +2,20 @@
 
 The reference runs every solver unpreconditioned (``pc none`` in
 ``config/default_run_variables:42-68``), but its L1 layer (PETSc) ships
-``PCMG``; this module is the TPU-native counterpart, and it is the lever
+``PCMG``; this module is the matrix-free counterpart, and it is the lever
 that turns the O(n^(1/3)·n) Krylov cost of the 3D north-star solves into
 O(n): a V(2,2) cycle costs ~8 fine-grid stencil applies and reduces the
 error by a near-grid-independent factor, so MG-preconditioned CG reaches
 1e-5 in ~10-20 iterations where plain CG needs ~1200 at 256^3.
 
-TPU-first design
-----------------
+Design
+------
 * Entirely matrix-free on grid-shaped state: smoothing is the stencil
-  apply plus axpys (bandwidth-bound, fuses), transfers are reshapes +
-  means / broadcasts (zero gathers).  No reductions anywhere inside the
+  apply plus axpys (bandwidth-bound, fuses), transfers are strided sums
+  and replications (zero gathers).  No reductions anywhere inside the
   V-cycle — like the Chebyshev smoother, its critical path has **no
-  collectives**, which is what you want when each dot product is an
-  ICI/DCN round-trip.
+  collectives**, which is what you want when each dot product is a
+  round-trip between devices.
 * **Cell-centered factor-2 coarsening**: the grids here have power-of-two
   interior sizes (256^3, 1024^2, ...) where vertex-centered coarsening
   (odd sizes) does not apply.  Restriction = mean over 2^d children,
@@ -67,14 +67,7 @@ def _make_op(dims: Tuple[int, ...], diag: float, off: float):
 
 
 def _pair_sum(a: jax.Array, axis: int) -> jax.Array:
-    """Sum adjacent pairs along ``axis`` via two stride-2 slices.
-
-    TPU layout note: the obvious ``reshape(..., n//2, 2, ...).mean``
-    creates an intermediate whose minormost dims include a 2 — which the
-    (8, 128)-tiled TPU layout pads 4x/64x and relayouts (measured: the
-    6D-reshape restriction made a 256^3 V-cycle ~50x slower than the
-    stencil work it wraps).  Strided slices keep the native layout.
-    """
+    """Sum adjacent pairs along ``axis`` via two stride-2 slices."""
     n = a.shape[axis]
     lo = jax.lax.slice_in_dim(a, 0, n, stride=2, axis=axis)
     hi = jax.lax.slice_in_dim(a, 1, n, stride=2, axis=axis)
@@ -84,8 +77,8 @@ def _pair_sum(a: jax.Array, axis: int) -> jax.Array:
 def _interleave(a: jax.Array, axis: int) -> jax.Array:
     """Duplicate each element along ``axis`` (inverse layout of
     ``_pair_sum``): concat + reshape keeps the size-2 factor on a MAJOR
-    dim when axis is major; for the minormost (lane) axis the caller
-    routes through the matmul path instead."""
+    dim when axis is major; for the minormost axis the caller routes
+    through the matmul path instead."""
     twice = jnp.concatenate([a[None], a[None]], axis=0)  # (2, ...)
     # move the copy dim right after `axis`, then merge
     perm = list(range(1, a.ndim + 1))
@@ -99,9 +92,8 @@ def _interleave(a: jax.Array, axis: int) -> jax.Array:
 def _restrict(r: jax.Array, dims: Tuple[int, ...]) -> jax.Array:
     """Mean over each 2x2(x2) cell block (cell-centered full weighting).
 
-    Major axes use stride-2 pairwise adds; the minormost (lane) axis
-    uses a matmul against a constant 0/1 pairing matrix — a tiny MXU op
-    that avoids stride-2 lane addressing entirely.
+    Major axes use stride-2 pairwise adds; the minormost axis uses a
+    matmul against a constant 0/1 pairing matrix.
     """
     nd = len(dims)
     out = r
@@ -114,9 +106,9 @@ def _restrict(r: jax.Array, dims: Tuple[int, ...]) -> jax.Array:
     out = jax.lax.dot_general(
         out, pair, (((nd - 1,), (0,)), ((), ())),
         preferred_element_type=r.dtype,
-        # full f32: the TPU default matmul precision truncates the
-        # OPERANDS to bf16 (~3 decimal digits) — measured to stall
-        # left-MG-preconditioned inner GMRES at ~1e-2 relative residual
+        # full f32: an unpinned f32 matmul may run in TF32 on the GPU
+        # (~3 decimal digits), enough to stall MG-preconditioned Krylov
+        # solves
         precision=jax.lax.Precision.HIGHEST,
     )
     return out * (1.0 / (2 ** nd))
@@ -124,7 +116,7 @@ def _restrict(r: jax.Array, dims: Tuple[int, ...]) -> jax.Array:
 
 def _prolong(e: jax.Array, dims: Tuple[int, ...]) -> jax.Array:
     """Piecewise-constant replication to the fine grid (Rᵀ up to scale):
-    interleave on major axes, replication matmul on the lane axis."""
+    interleave on major axes, replication matmul on the minormost axis."""
     nd = len(dims)
     out = e
     for ax in range(nd - 1):
@@ -149,8 +141,7 @@ def _axis_blend(g: jax.Array, ax: int) -> jax.Array:
     ``P = B · U`` and the matching full weighting
     ``R = (1/2^d) Uᵀ Bᵀ = mean-restrict ∘ B`` — keeping the cycle a
     valid symmetric CG preconditioner.  Pure pad+slice + parity select:
-    no stride-2 addressing, no size-2 minor dims (the (8, 128)-tiling
-    relayout trap, CLAUDE.md)."""
+    no stride-2 addressing, no size-2 minor dims."""
     from jax import lax
 
     n = g.shape[ax]
@@ -195,9 +186,11 @@ def _dirichlet_bounds(dims: Tuple[int, ...], diag: float, off: float):
 
 _JACOBI_OMEGA = {2: 0.8, 3: 6.0 / 7.0}  # optimal high-frequency damping
 
-# level-0 f32 bytes above which the auto cycle precision drops to bf16
-# (wins start at 256^3 = 67 MB: 1.18x there, 1.39x at 512^3; 128^3 =
-# 8 MB ties — see mg_preconditioner)
+# level-0 f32 bytes above which the auto cycle precision drops to bf16.
+# Set from measurements on the accelerator this code was first written
+# for.  On an H100 (700 W limit) at 512^3 the bf16 cycle needed 18 PCG
+# iterations to 1e-5 where the f32 cycle needed 5 (PERF.md); revisiting
+# the threshold is ROADMAP S8.
 _BF16_CYCLE_BYTES = 32 * 2**20
 
 
@@ -218,9 +211,8 @@ class MGLevels:
     #   analog).  MEASURED round 5 (CPU f64, 64^3/128^3): NO iteration
     #   win over pwc (V 8/10 -> 8/10, W 5/6 -> 6/6): with nu=2 damped
     #   Jacobi and cell-centered factor-2 coarsening the smoother, not
-    #   the transfer order, limits the cycle — and pwc keeps the fused
-    #   Mosaic transfer kernels, so it stays the default.  This answers
-    #   the round-3 FMG note's "revisit with better transfers".
+    #   the transfer order, limits the cycle — so pwc stays the
+    #   default.
 
 
 def plan(op, *, nu: int = 2, min_size: int = 4,
@@ -233,11 +225,10 @@ def plan(op, *, nu: int = 2, min_size: int = 4,
     Chebyshev steps under the analytic spectral bounds.  ``cycle``: 'w'
     (default — two recursive solves per level, PETSc's
     ``-pc_mg_cycle_type w``) or 'v' (one).  W fully compensates the
-    piecewise-constant transfers' weak per-cycle contraction: MEASURED
-    on v5e, W-PCG takes 5 grid-independent iterations at every size
-    64^3..512^3 where V takes 8-13, and the extra coarse-level work is
-    cheap (each coarse level is 8x smaller in 3D) — north-star
-    wall-times drop 26% at 256^3 and 40% at 512^3.
+    piecewise-constant transfers' weak per-cycle contraction: with an
+    f32 cycle W-PCG takes 5-6 grid-independent iterations to 1e-5
+    (64^3..256^3 on the CPU, 512^3 on an H100) where V takes more, and
+    each coarse level is 8x smaller in 3D.
     """
     if cycle not in ("v", "w"):
         raise ValueError(f"cycle must be 'v' or 'w', got {cycle!r}")
@@ -265,29 +256,20 @@ def vcycle(levels: MGLevels, b: jax.Array, level: int = 0,
     symmetric operation in ``b`` — valid as a CG preconditioner.
 
     ``out_dtype``: dtype of the RETURNED correction (default:
-    ``b.dtype``).  When the level-0 smoother is a fused Mosaic kernel
-    the final sweep writes this dtype directly — the bf16-cycle →
-    f32-solver boundary costs no separate cast pass.
+    ``b.dtype``); the final smoothing sweep writes it directly.
 
     ``cast_dtype``: the cycle's arithmetic dtype when it differs from
-    ``b.dtype`` — the entry cast fuses into the zero-guess pre-smooth
-    (``Stencil3D.mv_cast``: f32 in, bf16 iterate + bf16 RHS copy out,
-    one streaming pass); the fallback casts first, same values up to
-    one f32-vs-bf16 rounding of the first apply.
+    ``b.dtype`` (``b`` is cast on entry).
 
     ``rdot``: return ``(z, d)`` with ``d ≈ b · z`` (PCG's post-cycle
-    ``vdot(r, z)``) accumulated inside the final smoothing kernel at
-    zero HBM cost, or ``d = None`` when the final sweep cannot carry
-    the accumulator (caller computes the dot itself).  Under a bf16
-    ``cast_dtype`` the dot sees the bf16-rounded residual copy — the
-    per-element roundings are symmetric and average out across n
-    elements (relative error ~1e-6 at 512^3, measured), and CG's
-    alpha/beta are flat to first order around their exact values."""
+    ``vdot(r, z)``) computed beside the final smoothing sweep, or
+    ``d = None`` when the level's operator has no fused sweep-and-dot
+    (caller computes the dot itself).  Under a bf16 ``cast_dtype`` the
+    dot sees the bf16-rounded residual copy — the per-element roundings
+    are symmetric and average out across n elements, and CG's alpha/beta
+    are flat to first order around their exact values."""
     dims = levels.dims[level]
     A = _make_op(dims, levels.diag, levels.off)
-    # keep omega a PYTHON float: the Pallas jacobi route needs a
-    # compile-time-static omega, and jnp.asarray under an active trace
-    # returns a tracer that float() cannot concretize
     omega = _JACOBI_OMEGA[len(dims)] / levels.diag
 
     if cast_dtype is not None and level == len(levels.dims) - 1:
@@ -300,105 +282,52 @@ def vcycle(levels: MGLevels, b: jax.Array, level: int = 0,
         x = x if out_dtype is None else x.astype(out_dtype)
         return (x, None) if rdot else x
 
-    # pre-smoothing (x0 = 0 folds the first sweep into a scale).
-    # jacobi_sweep/residual fuse the elementwise update into the
-    # stencil's slab loop at HBM scale (~2 memory passes saved per
-    # sweep; identical values — below the cutoff XLA fuses anyway)
-    # NOTE (round-5 negative result): routing the smoother sweeps
-    # through the IN-PLACE kernel here measured SLOWER (W-cycle chain
-    # ~15.7 vs ~11.5 ms/cycle equivalent).  The XLA carry copy that
-    # in_place eliminates is a PALLAS-OUTPUT-INTO-LOOP-CARRY
-    # phenomenon; the cycle is UNROLLED (no loop carries), so aliasing
-    # had nothing to win and made buffer assignment strictly harder
-    # (protective copies where liveness analysis is conservative).
-    # in_place stays for genuine chained loops (bench's chained-SpMV;
-    # user smoother iterations driven through fori_loop).
     smooth = getattr(A, "jacobi_sweep",
                      lambda x_, b_, w: x_ + w * (b_ - A.mv(x_)))
     resid = getattr(A, "residual", lambda x_, b_: b_ - A.mv(x_))
-    needs_cast = (cast_dtype is not None
-                  and b.dtype != jnp.dtype(cast_dtype))
+    if cast_dtype is not None and b.dtype != jnp.dtype(cast_dtype):
+        b = b.astype(cast_dtype)
     if levels.nu >= 2:
         # x0 = 0 folds the first TWO sweeps into ONE stencil apply:
         # x2 = w b + w (b - A (w b)) = (2w - w^2 diag) b - w^2 off * N b
         # — a modified-coefficient stencil on b (same values up to
-        # rounding), one Pallas/slab pass instead of scale + sweep
-        # (5 memory passes -> 2 at HBM scale)
+        # rounding), one pass instead of scale + sweep
         A2 = _make_op(
             dims,
             2.0 * omega - omega * omega * levels.diag,
             -omega * omega * levels.off,
         )
-        pair = None
-        if needs_cast:
-            mc = getattr(A2, "mv_cast", None)
-            if mc is not None:
-                # entry cast fused into the pre-smooth: f32 b in, bf16
-                # x2 + bf16 b copy out — one pass over the f32 operand
-                pair = mc(b, cast_dtype)
-        if pair is not None:
-            x, b = pair
-        else:
-            if needs_cast:
-                b = b.astype(cast_dtype)
-            x = A2.mv(b)
+        x = A2.mv(b)
         presweeps = levels.nu - 2
     else:
-        if needs_cast:
-            b = b.astype(cast_dtype)
         x = omega * b
         presweeps = levels.nu - 1
     dtype = x.dtype   # the cycle's arithmetic dtype from here on
     for _ in range(presweeps):
         x = smooth(x, b, omega)
 
-    # (2h)^2 / h^2 rescaling of the h^2-convention residual.  The fused
-    # Mosaic kernel computes residual + restriction in ONE pass (the
-    # fine r never exists in HBM — it is used for nothing else); the
-    # fallback composes the two ops
+    # (2h)^2 / h^2 rescaling of the h^2-convention residual
     linear = levels.transfers == "linear"
-    rc = None
-    rr = None if linear else getattr(A, "residual_restrict", None)
-    if rr is not None:
-        rc = rr(x, b, scale=4.0)
-    if rc is None:
-        r = resid(x, b)
-        rc = 4.0 * (_restrict_lin(r, dims) if linear
-                    else _restrict(r, dims))
+    r = resid(x, b)
+    rc = 4.0 * (_restrict_lin(r, dims) if linear else _restrict(r, dims))
     ec = vcycle(levels, rc, level + 1)
     if levels.cycle == "w" and level + 1 < len(levels.dims) - 1:
         # W-cycle: re-solve the coarse problem on ITS residual (second
-        # recursive visit per level, skipped at the coarsest); the
-        # fused residual form saves the separate subtraction pass
+        # recursive visit per level, skipped at the coarsest)
         Ac = _make_op(levels.dims[level + 1], levels.diag, levels.off)
         resid_c = getattr(Ac, "residual", lambda x_, b_: b_ - Ac.mv(x_))
         ec = ec + vcycle(levels, resid_c(ec, rc), level + 1)
-    # coarse correction + first post-smooth sweep, fused when the
-    # Mosaic kernel routes (prolong + add + sweep in one pass)
-    post = levels.nu
-    xp = None
-    if levels.nu >= 1 and not linear:
-        pj = getattr(A, "prolong_jacobi", None)
-        if pj is not None:
-            xp = pj(x, b, ec.astype(dtype), omega)
-    if xp is not None:
-        x, post = xp, levels.nu - 1
-    else:
-        pro = _prolong_lin if linear else _prolong
-        x = x + pro(ec, levels.dims[level + 1]).astype(dtype)
+    pro = _prolong_lin if linear else _prolong
+    x = x + pro(ec, levels.dims[level + 1]).astype(dtype)
 
+    post = levels.nu
     js = getattr(A, "jacobi_sweep", None)
     if post and js is not None:
-        # final sweep writes the requested output dtype directly
-        # (fused into the Pallas kernel at HBM scale; the fallbacks
-        # cast after — identical values)
+        # the final sweep writes the requested output dtype directly
         for _ in range(post - 1):
             x = smooth(x, b, omega)
         if rdot:
-            jsd = getattr(A, "jacobi_sweep_dot", None)
-            if jsd is not None:
-                return jsd(x, b, omega, out_dtype=out_dtype)
-            return js(x, b, omega, out_dtype=out_dtype), None
+            return A.jacobi_sweep_dot(x, b, omega, out_dtype=out_dtype)
         return js(x, b, omega, out_dtype=out_dtype)
     for _ in range(post):
         x = smooth(x, b, omega)
@@ -417,12 +346,9 @@ def mg_preconditioner(op, *, nu: int = 2, min_size: int = 4,
     ``dtype``: the CYCLE's arithmetic precision (the residual is cast in,
     the correction cast back to ``r.dtype``).  ``None`` = auto: bf16 at
     bandwidth-bound sizes, input dtype otherwise — a preconditioner only
-    needs ~1-digit accuracy per application: MEASURED on v5e, the bf16
-    W-cycle costs one extra PCG iteration (6 vs 5) but cuts the df
-    north-star 512^3 0.87 -> 0.63 s (1.39x) and 256^3 0.179 -> 0.152 s
-    (1.18x) at identical 2-pass convergence to ~3e-11; 128^3 and below
-    tie (VMEM-resident, bandwidth not binding — auto keeps the input
-    dtype below ``_BF16_CYCLE_BYTES``)."""
+    needs ~1-digit accuracy per application, and bf16 halves the cycle's
+    memory traffic at the cost of a PCG iteration or two.  Auto keeps
+    the input dtype below ``_BF16_CYCLE_BYTES``."""
     levels = plan(op, nu=nu, min_size=min_size, coarse_iters=coarse_iters,
                   cycle=cycle, transfers=transfers)
     dims = levels.dims[0]
@@ -449,11 +375,10 @@ def mg_preconditioner(op, *, nu: int = 2, min_size: int = 4,
         return M
 
     def M_dot(r: jax.Array):
-        """``(z, r·z)`` — the cycle plus PCG's post-preconditioner dot,
-        accumulated inside the final smoothing kernel when it routes to
-        Pallas (``cg(precond_dot=...)``); otherwise an explicit vdot
-        against the TRUE f32 residual (exact, and free at VMEM-resident
-        sizes)."""
+        """``(z, r·z)`` — the cycle plus PCG's post-preconditioner dot
+        (``cg(precond_dot=...)``), written beside the final smoothing
+        sweep; levels without a fused sweep-and-dot take an explicit f32
+        dot against the TRUE residual."""
         g = r if r.ndim == len(dims) else r.reshape(dims)
         if cycle_dtype is not None and g.dtype != cycle_dtype:
             z, d = vcycle(levels, g, out_dtype=r.dtype,

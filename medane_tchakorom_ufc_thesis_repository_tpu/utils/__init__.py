@@ -1,6 +1,6 @@
 """Harness layer: config defaults, CLI, profiling, logging.
 
-The TPU rebuild of the reference's L6 tooling (SURVEY.md §2.6): ``iSolve``
+The JAX rebuild of the reference's L6 tooling (SURVEY.md §2.6): ``iSolve``
 launcher + ``config/default_run_variables`` + PetscLog stage profiling.
 """
 

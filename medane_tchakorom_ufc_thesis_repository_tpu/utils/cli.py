@@ -26,7 +26,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="isolve",
-        description="TPU-native two-stage multisplitting solver launcher",
+        description="two-stage multisplitting solver launcher",
     )
     p.add_argument("--alg", default="SM",
                    help="GMRES | CA_GMRES | MGPCG | SM | AM | "
@@ -428,7 +428,7 @@ def _load_matrix_operator(path: str, nblocks: int, dtype):
     a_ii, a_ic = poisson.block_split_ell(
         coo.row, coo.col, coo.data, A.shape, nblocks=nblocks, dtype=dtype,
     )
-    op = blockops.as_stacked_tpu_operator(
+    op = blockops.as_stacked_device_operator(
         blockops.StackedELLOperator(a_ii=a_ii, a_ic=a_ic)
     )
     b = jnp.asarray(
@@ -752,7 +752,7 @@ def run(cfg, profile_dir=None, stage_timers=False, record_history=False):
         # preconditioning (solvers/multigrid.py — the PCMG analog) and,
         # for rtol below the f32 attainable-accuracy floor, double-float
         # residual refinement (solvers/df64.py) so 1e-8..1e-12 relative
-        # residuals are reachable on f64-less TPUs
+        # residuals are reachable from f32 device solves
         from medane_tchakorom_ufc_thesis_repository_tpu.core import poisson
         from medane_tchakorom_ufc_thesis_repository_tpu.solvers.krylov import (
             cg as cg_solve,
@@ -1040,7 +1040,12 @@ def run(cfg, profile_dir=None, stage_timers=False, record_history=False):
 
 
 def main(argv=None) -> int:
+    from medane_tchakorom_ufc_thesis_repository_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
     args = build_parser().parse_args(argv)
+    enable_compile_cache()
     if args.net_async:
         result = run_net_async(args)
         if args.json:

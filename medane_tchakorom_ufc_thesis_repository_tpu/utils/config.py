@@ -56,13 +56,13 @@ class RunConfig:
     # a user-supplied square sparse matrix instead of the Poisson
     # generators (the create_matrix_sparse AIJ entry point): path to a
     # scipy .npz (save_npz) or MatrixMarket .mtx file; b = A·1.  The
-    # split is routed by as_stacked_tpu_operator (banded→DIA,
+    # split is routed by as_stacked_device_operator (banded→DIA,
     # blockable→BSR, else gather-ELL with a warning).
     matrix: Optional[str] = None
     # whole-system PC for the GMRES baseline on a user matrix — the
     # outer-KSP ``-pc_type`` analog (iSolve:78-83).  'jacobi' = diagonal
-    # scaling; 'bjacobi' = PCBJACOBI's TPU form: batched dense block
-    # inverses applied as one MXU einsum (solvers/bjacobi.py).
+    # scaling; 'bjacobi' = PCBJACOBI as batched dense block inverses
+    # applied as one einsum (solvers/bjacobi.py).
     pc_type: str = "none"          # none | jacobi | bjacobi | amg
     pc_block_size: int = 64        # bjacobi diagonal-block size
     # decomposition (np/npb analog: nblocks = np/npb)

@@ -14,7 +14,6 @@ import jax.numpy as jnp
 from medane_tchakorom_ufc_thesis_repository_tpu.core import operators
 from medane_tchakorom_ufc_thesis_repository_tpu.ops import (
     aij_pack,
-    aij_pallas,
     clos_route,
 )
 
@@ -176,11 +175,11 @@ class TestAIJOperator:
         np.testing.assert_allclose(y1, y2, rtol=1e-6, atol=1e-6)
 
 
-class TestAIJPallasInterpreter:
-    """Kernel semantics vs the numpy bit-reference (interpreter mode —
-    the same code path that compiles through Mosaic on-chip)."""
+class TestAIJJnpApply:
+    """The routed gather program's plain-jnp apply (the only AIJ apply)
+    against the numpy bit-reference and a dense product, under ``jit``."""
 
-    def test_kernels_match_numpy_reference(self):
+    def test_apply_matches_numpy_reference(self):
         rng = np.random.RandomState(21)
         rows, cols, vals = _random_coo(rng, 2500, 2500, 20000)
         plan = aij_pack.pack_aij(rows, cols, vals, (2500, 2500))
@@ -188,13 +187,11 @@ class TestAIJPallasInterpreter:
                                     with_rmv=False)
         x = rng.randn(2500).astype(np.float32)
         want = aij_pack.aij_mv_np(plan, x)
-        got = np.asarray(aij_pallas.aij_mv_pallas(
-            op.segments, op.n_pad_cols, op.nrows, jnp.asarray(x),
-            interpret=True))
+        got = np.asarray(jax.jit(lambda o, v: o.mv(v))(op, jnp.asarray(x)))
         np.testing.assert_allclose(got, want.astype(np.float32),
                                    rtol=1e-5, atol=1e-5)
 
-    def test_kernels_multi_segment(self):
+    def test_apply_multi_segment(self):
         rng = np.random.RandomState(22)
         rows, cols, vals = _random_coo(rng, 4000, 4000, 24000)
         op = operators.AIJ.from_coo(rows, cols, vals, (4000, 4000),
@@ -203,9 +200,7 @@ class TestAIJPallasInterpreter:
         x = rng.randn(4000).astype(np.float32)
         want = _dense(rows, cols, vals, (4000, 4000)).astype(
             np.float32) @ x
-        got = np.asarray(aij_pallas.aij_mv_pallas(
-            op.segments, op.n_pad_cols, op.nrows, jnp.asarray(x),
-            interpret=True))
+        got = np.asarray(jax.jit(lambda o, v: o.mv(v))(op, jnp.asarray(x)))
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 

@@ -3,8 +3,8 @@ apply, singular-block fallback, and end-to-end Krylov acceleration.
 
 The reference exposes PETSc PCs through ``-inner_pc_type``/
 ``-outer_pc_type`` (``iSolve:78-83``; ``src/utils/utils.c:511-530``);
-PCBJACOBI is the MPI workhorse there.  The TPU analog applies batched
-dense block inverses (one MXU einsum) instead of per-block ILU sweeps.
+PCBJACOBI is the MPI workhorse there.  This analog applies batched
+dense block inverses (one einsum) instead of per-block ILU sweeps.
 """
 
 import numpy as np

@@ -1,8 +1,8 @@
 """BSR (block-ELL) operator: scipy-verified correctness + routing.
 
 The reference's ``create_matrix_sparse`` (``src/utils/utils.c:139-155``)
-accepts ANY sparsity pattern; on TPU the elementwise-gather ELL path is
-~139x off slice speed, so ``as_tpu_operator`` routes banded → DIA and
+accepts ANY sparsity pattern; the elementwise-gather ELL path is the
+slowest format, so ``as_device_operator`` routes banded → DIA and
 blockable → BSR (dense sub-blocks, block-row gathers + batched sub-block
 matvecs, transpose pack for ``rmv`` — no scatter-adds).
 """
@@ -19,7 +19,7 @@ from medane_tchakorom_ufc_thesis_repository_tpu.core.operators import (
     BSR,
     DIA,
     ELL,
-    as_tpu_operator,
+    as_device_operator,
     bsr_block_fill_from_coo,
 )
 
@@ -161,7 +161,7 @@ class TestBsrCorrectness:
 class TestRouting:
     def test_banded_still_goes_dia(self):
         ell = poisson.poisson2d_ell(16, 16, dtype=jnp.float64)
-        out = as_tpu_operator(ell)
+        out = as_device_operator(ell)
         assert isinstance(out, DIA)
 
     def test_blockable_goes_bsr(self):
@@ -169,7 +169,7 @@ class TestRouting:
         rows, cols, vals, shape = _to_coo(A)
         ell = poisson.coo_to_ell(rows, cols, vals, shape,
                                  dtype=jnp.float64)
-        out = as_tpu_operator(ell, max_diags=8,
+        out = as_device_operator(ell, max_diags=8,
                               bsr_block_sizes=(16,), max_bsr_cost=40.0)
         assert isinstance(out, BSR)
         x = np.random.default_rng(22).standard_normal(shape[1])
@@ -191,7 +191,7 @@ class TestRouting:
         rows, cols, vals, shape = _to_coo(A)
         ell = poisson.coo_to_ell(rows, cols, vals, shape,
                                  dtype=jnp.float64)
-        out = as_tpu_operator(ell, max_diags=8, max_bsr_cost=4.0,
+        out = as_device_operator(ell, max_diags=8, max_bsr_cost=4.0,
                               bsr_block_sizes=(128,), max_dense_n=0,
                               max_bsr_bytes=1024)
         assert isinstance(out, AIJ)
@@ -219,7 +219,7 @@ class TestRouting:
         rows, cols, vals, shape = _to_coo(A)
         ell = poisson.coo_to_ell(rows, cols, vals, shape,
                                  dtype=jnp.float64)
-        out = as_tpu_operator(ell, max_diags=8, max_bsr_cost=4.0,
+        out = as_device_operator(ell, max_diags=8, max_bsr_cost=4.0,
                               bsr_block_sizes=(128,), max_dense_n=0)
         assert isinstance(out, AIJ)
         x = np.random.default_rng(25).standard_normal(256)
@@ -229,11 +229,11 @@ class TestRouting:
         )
 
         path = tmp_path / "cal.json"
-        monkeypatch.setenv("MEDANE_TPU_CALIBRATION", str(path))
+        monkeypatch.setenv("MEDANE_CALIBRATION", str(path))
         calibration.save({"aij_relative_cost": 1950.0})
         try:
             with pytest.warns(UserWarning, match="HIGH-fill BSR"):
-                out2 = as_tpu_operator(
+                out2 = as_device_operator(
                     ell, max_diags=8, max_bsr_cost=4.0,
                     bsr_block_sizes=(128,), max_dense_n=0)
             assert isinstance(out2, BSR)
@@ -244,9 +244,8 @@ class TestRouting:
             calibration.reset_cache()
 
     def test_small_unstructured_routes_dense(self):
-        # same pattern, dense route at the default cutoff: the MXU
-        # dense matvec beats gather-ELL 13x at n=4096 (operators.py
-        # routing note), so small unstructured matrices go DenseOp
+        # same pattern, dense route at the default cutoff: small
+        # unstructured matrices go DenseOp
         from medane_tchakorom_ufc_thesis_repository_tpu.core.operators import (
             DenseOp,
         )
@@ -256,7 +255,7 @@ class TestRouting:
         rows, cols, vals, shape = _to_coo(A)
         ell = poisson.coo_to_ell(rows, cols, vals, shape,
                                  dtype=jnp.float64)
-        out = as_tpu_operator(ell, max_diags=8, max_bsr_cost=4.0,
+        out = as_device_operator(ell, max_diags=8, max_bsr_cost=4.0,
                               bsr_block_sizes=(128,))
         assert isinstance(out, DenseOp)
         x = np.random.default_rng(24).standard_normal(256)
@@ -300,14 +299,14 @@ class TestRouting:
         )
         op = blockops.StackedELLOperator(a_ii=a_ii, a_ic=a_ic)
         with pytest.warns(UserWarning, match="gather-ELL"):
-            out = blockops.as_stacked_tpu_operator(op)
+            out = blockops.as_stacked_device_operator(op)
         assert out is op
 
 
 class TestFromScipy:
     """operator_from_coo / from_scipy: the create_matrix_sparse entry
     point (reference utils.c:139-155) — any scipy matrix in, the
-    TPU-routed operator out."""
+    routed device operator out."""
 
     def test_banded_routes_dia(self):
         from medane_tchakorom_ufc_thesis_repository_tpu.core.operators import (
@@ -354,8 +353,8 @@ class TestFromScipy:
         )
 
     def test_small_rectangular_routes_dense(self):
-        # rectangular rmv on ELL is a scatter-add (TPU-pathological) —
-        # small rectangular goes dense so lsqr/cgne get MXU matvecs
+        # rectangular rmv on ELL is a scatter-add — small rectangular
+        # goes dense so lsqr/cgne get dense matvecs
         from medane_tchakorom_ufc_thesis_repository_tpu.core.operators import (
             DenseOp, from_scipy,
         )
@@ -436,7 +435,7 @@ class TestStackedBSR:
         )
 
         A, ell_op = self._blocky_system()
-        out = blockops.as_stacked_tpu_operator(
+        out = blockops.as_stacked_device_operator(
             ell_op, max_diags=4, bsr_block_sizes=(8,), max_bsr_cost=64.0,
         )
         assert isinstance(out, blockops.StackedBSROperator)

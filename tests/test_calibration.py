@@ -1,5 +1,5 @@
 """Chip-calibrated routing constants (core/calibration.py +
-utils/calibrate.py): shipped v5e defaults, per-device override file,
+utils/calibrate.py): shipped H100 defaults, per-device override file,
 and the routing code honoring the override."""
 
 import json
@@ -38,17 +38,18 @@ def _blockable_coo(nbr=16, c=16, seed=2):
 
 class TestStore:
     def test_shipped_defaults_without_file(self, monkeypatch, tmp_path):
-        monkeypatch.setenv("MEDANE_TPU_CALIBRATION",
+        monkeypatch.setenv("MEDANE_CALIBRATION",
                            str(tmp_path / "missing.json"))
         assert calibration.load()["bsr_bs_penalty"] == \
             calibration.SHIPPED["bsr_bs_penalty"]
         assert calibration.ell_relative_cost() == \
             calibration.SHIPPED["ell_relative_cost"]
-        assert calibration.default_max_dense_n() == 4096
+        assert calibration.default_max_dense_n() == \
+            calibration.SHIPPED["max_dense_n"]
 
     def test_save_load_roundtrip(self, monkeypatch, tmp_path):
         path = tmp_path / "cal.json"
-        monkeypatch.setenv("MEDANE_TPU_CALIBRATION", str(path))
+        monkeypatch.setenv("MEDANE_CALIBRATION", str(path))
         cal = {"device_kind": "TestChip", "bsr_bs_penalty": {"16": 2.5},
                "ell_relative_cost": 50.0, "max_dense_n": 512}
         calibration.save(cal)
@@ -62,7 +63,7 @@ class TestStore:
                                                tmp_path):
         path = tmp_path / "cal.json"
         path.write_text("{not json")
-        monkeypatch.setenv("MEDANE_TPU_CALIBRATION", str(path))
+        monkeypatch.setenv("MEDANE_CALIBRATION", str(path))
         with pytest.warns(UserWarning, match="unreadable calibration"):
             loaded = calibration.load()
         assert loaded["ell_relative_cost"] == \
@@ -72,14 +73,14 @@ class TestStore:
                                               tmp_path):
         path = tmp_path / "cal.json"
         path.write_text(json.dumps({"max_dense_n": 1024}))
-        monkeypatch.setenv("MEDANE_TPU_CALIBRATION", str(path))
+        monkeypatch.setenv("MEDANE_CALIBRATION", str(path))
         loaded = calibration.load()
         assert loaded["max_dense_n"] == 1024
         assert loaded["bsr_bs_penalty"] == \
             calibration.SHIPPED["bsr_bs_penalty"]
 
     def test_default_path_is_per_device_kind(self, monkeypatch):
-        monkeypatch.delenv("MEDANE_TPU_CALIBRATION", raising=False)
+        monkeypatch.delenv("MEDANE_CALIBRATION", raising=False)
         p = calibration.calibration_path("FooChip_v9")
         assert p.endswith("calibration-FooChip_v9.json")
 
@@ -93,7 +94,7 @@ class TestRoutingHonorsCalibration:
 
         rows, cols, vals, shape = _blockable_coo()
         path = tmp_path / "cal.json"
-        monkeypatch.setenv("MEDANE_TPU_CALIBRATION", str(path))
+        monkeypatch.setenv("MEDANE_CALIBRATION", str(path))
 
         # default: cleanly blockable -> BSR (dense route disabled to
         # isolate the BSR decision)
@@ -124,7 +125,7 @@ class TestRoutingHonorsCalibration:
 
         rows, cols, vals, shape = _blockable_coo(nbr=8, c=16)
         path = tmp_path / "cal.json"
-        monkeypatch.setenv("MEDANE_TPU_CALIBRATION", str(path))
+        monkeypatch.setenv("MEDANE_CALIBRATION", str(path))
         # price BSR out so the decision is dense-vs-ELL, then shrink
         # the calibrated dense cutoff below this matrix's size
         calibration.save({

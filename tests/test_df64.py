@@ -124,32 +124,3 @@ class TestDFRefinement:
         assert all(
             b < a for a, b in zip(res.rel_history, res.rel_history[1:])
         )
-
-
-class TestSlabResidual:
-    def test_slab_form_bit_identical(self, monkeypatch):
-        """The x-slab df residual is the SAME EFT tree per slab window
-        (halo planes concatenated in, not post-added) — outputs must be
-        bit-identical to the whole-array form."""
-        import jax.numpy as jnp
-        import numpy as np
-
-        from medane_tchakorom_ufc_thesis_repository_tpu.core import (
-            operators as om,
-        )
-        from medane_tchakorom_ufc_thesis_repository_tpu.solvers import df64
-
-        nx, ny, nz = 16, 8, 8
-        rng = np.random.default_rng(0)
-        x = (jnp.asarray(rng.standard_normal((nx, ny, nz)), jnp.float32),
-             jnp.asarray(1e-8 * rng.standard_normal((nx, ny, nz)),
-                         jnp.float32))
-        b = (jnp.asarray(rng.standard_normal((nx, ny, nz)), jnp.float32),
-             jnp.zeros((nx, ny, nz), jnp.float32))
-        whole = df64.stencil3d_df_residual(nx, ny, nz, 6.0, -1.0)
-        monkeypatch.setattr(om, "_VMEM_RESIDENT_BYTES", 1)
-        slab = df64.stencil3d_df_residual(nx, ny, nz, 6.0, -1.0)
-        rw = whole(b, x)
-        rs = slab(b, x)
-        np.testing.assert_array_equal(np.asarray(rw[0]), np.asarray(rs[0]))
-        np.testing.assert_array_equal(np.asarray(rw[1]), np.asarray(rs[1]))

@@ -93,7 +93,7 @@ class TestChebyshevOnUserMatrix:
             coo.row, coo.col, coo.data, A.shape, nblocks=2,
             dtype=jnp.float64,
         )
-        op = blockops.as_stacked_tpu_operator(
+        op = blockops.as_stacked_device_operator(
             blockops.StackedELLOperator(a_ii=a_ii, a_ic=a_ic)
         )
         n = A.shape[0]

@@ -50,7 +50,7 @@ class TestBulk:
             ["--alg", "SM", "--m", "8", "--n", "8", "--rtol", "1e-3",
              "--maxiter", "200", "--dtype", "float64"],
             timeout_s=300,
-            env={"JAX_PLATFORMS": "cpu"},  # keep the test off the TPU queue
+            env={"JAX_PLATFORMS": "cpu"},  # keep the test off any accelerator
         )
         assert rec.get("converged") is True
         assert rec["returncode"] == 0

@@ -3,7 +3,7 @@ SPMD HLO stays (near-)constant per device as the mesh grows.
 
 Wall-clock weak scaling on oversubscribed virtual CPU devices measures
 host contention, not collectives; this is the harness-level evidence for
-the >=80% north-star that does not need hardware (VERDICT round 2 #6):
+the >=80% north-star that does not need hardware:
 fixed per-device load, growing mesh, count the collectives and their
 per-device byte volumes in the optimized HLO.
 """

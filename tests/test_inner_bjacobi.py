@@ -40,7 +40,7 @@ def _stacked_from_scipy(A, nblocks=2, dtype=jnp.float64, route=True):
         coo.row, coo.col, coo.data, A.shape, nblocks=nblocks, dtype=dtype,
     )
     eop = blockops.StackedELLOperator(a_ii=a_ii, a_ic=a_ic)
-    return blockops.as_stacked_tpu_operator(eop) if route else eop
+    return blockops.as_stacked_device_operator(eop) if route else eop
 
 
 def _probe_diag_dense(op, bidx=0):
@@ -81,7 +81,7 @@ class TestDiagCooExtraction:
         a_ii, a_ic = poisson.block_split_ell(
             g[0], g[1], vals, (gn, gn), nblocks=2, dtype=jnp.float64,
         )
-        op = blockops.as_stacked_tpu_operator(
+        op = blockops.as_stacked_device_operator(
             blockops.StackedELLOperator(a_ii=a_ii, a_ic=a_ic)
         )
         assert isinstance(op, blockops.StackedDIAOperator)

@@ -187,7 +187,7 @@ class TestFusedShardedNorthstar:
 
 class TestTiledMGPCG:
     """The same solvers over the 2-D-tiled ('block','ir','ic') mesh —
-    perimeter halos on the TPU torus (parallel/tiled.py layout)."""
+    perimeter halos (parallel/tiled.py layout)."""
 
     @pytest.fixture(scope="class")
     def tmesh(self):

@@ -141,8 +141,7 @@ class TestPCG:
     def test_return_rdot_parity(self):
         """mg_preconditioner(return_rdot=True) returns the SAME cycle
         output plus r·z, and cg(precond_dot=...) converges identically
-        (same iteration count; the dot rides the fused kernel at HBM
-        scale, an explicit vdot here)."""
+        (same iteration count)."""
         op = poisson.poisson3d(32, 32, 32)
         b = poisson.rhs_for_exact_ones(op).astype(jnp.float32)
         M = mg_preconditioner(op)
@@ -177,9 +176,7 @@ class TestPCG:
 
 
 class TestCyclePrecision:
-    """bf16 cycle arithmetic (auto at bandwidth-bound sizes; measured
-    512^3 north-star 0.87 -> 0.63 s on v5e at identical 2-pass
-    convergence — BENCHMARKS.md)."""
+    """bf16 cycle arithmetic (auto at bandwidth-bound sizes)."""
 
     def test_explicit_bf16_cycle_preconditions_cg(self):
         import jax.numpy as jnp

@@ -82,7 +82,7 @@ class TestBlockOps:
 
 class TestStackedDIA:
     """Banded general-sparse routing: StackedELLOperator -> DIA planes
-    (kills the 139x ELL gather penalty on TPU; the reference's
+    (no per-nonzero gathers; the reference's
     create_matrix_sparse AIJ capability, utils.c:139-155)."""
 
     def _variable_coeff_ell(self, m=16, n=16, nblocks=2):
@@ -100,7 +100,7 @@ class TestStackedDIA:
 
     def test_dia_matches_ell_matvecs(self):
         eop = self._variable_coeff_ell()
-        dop = blockops.as_stacked_tpu_operator(eop)
+        dop = blockops.as_stacked_device_operator(eop)
         assert isinstance(dop, blockops.StackedDIAOperator)
         x = jnp.asarray(
             np.random.default_rng(0).standard_normal(
@@ -122,7 +122,7 @@ class TestStackedDIA:
 
     def test_single_diag_mv_matches(self):
         eop = self._variable_coeff_ell()
-        dop = blockops.as_stacked_tpu_operator(eop)
+        dop = blockops.as_stacked_device_operator(eop)
         x = jnp.asarray(
             np.random.default_rng(1).standard_normal(
                 (eop.nblocks, eop.block_size)
@@ -145,7 +145,7 @@ class TestStackedDIA:
 
     def test_solve_agrees_with_ell(self):
         eop = self._variable_coeff_ell()
-        dop = blockops.as_stacked_tpu_operator(eop)
+        dop = blockops.as_stacked_device_operator(eop)
         b = blockops.rhs_ones(eop, jnp.float64)
         res_e = ms.sm(eop, b, rtol=1e-4, maxiter=4000,
                       inner=ms.InnerConfig(maxiter=30))
@@ -163,7 +163,7 @@ class TestStackedDIA:
         # pass-through must warn and return the operator unchanged
         eop = self._variable_coeff_ell()
         with pytest.warns(UserWarning, match="gather-ELL"):
-            out = blockops.as_stacked_tpu_operator(
+            out = blockops.as_stacked_device_operator(
                 eop, max_diags=2, max_bsr_cost=0.5
             )
         assert out is eop
@@ -202,17 +202,18 @@ class TestStackedDIA:
             dtype=jnp.float64,
         )
         eop = blockops.StackedELLOperator(a_ii=a_ii, a_ic=a_ic)
-        out = blockops.as_stacked_tpu_operator(eop)
+        out = blockops.as_stacked_device_operator(eop)
         assert isinstance(out, blockops.StackedBSROperator)
         x = blockops.rhs_ones(eop, jnp.float64)
         np.testing.assert_allclose(
             np.asarray(out.full_mv(x)), np.asarray(eop.full_mv(x)),
             rtol=1e-12, atol=1e-12,
         )
-        # the banded fixture warns and passes through at defaults
+        # neither banded (max_diags=2) nor cheap enough as BSR: warns
+        # and passes through
         with pytest.warns(UserWarning, match="gather-ELL"):
-            banded = blockops.as_stacked_tpu_operator(
-                self._variable_coeff_ell(), max_diags=2
+            banded = blockops.as_stacked_device_operator(
+                self._variable_coeff_ell(), max_diags=2, max_bsr_cost=0.5
             )
         assert isinstance(banded, blockops.StackedELLOperator)
 
@@ -436,7 +437,7 @@ class TestPublishBasisCollection:
     thesis-faithful per-sweep basis embeds s near-collinear frozen-RHS
     iterates (AMAM_GLOBAL d=4 needs ~6x AM's sweeps); collecting columns
     at publish boundaries restores — and beats — AM's sweep counts
-    (measured d=4: 2824 -> 144 sweeps, BENCHMARKS.md)."""
+    (measured d=4: 2824 -> 144 sweeps)."""
 
     def test_publish_collection_converges_and_beats_sweep(self):
         op, b = _problem2d(32, 32)

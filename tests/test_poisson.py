@@ -192,11 +192,11 @@ class TestFormatConversion:
         from medane_tchakorom_ufc_thesis_repository_tpu.core import poisson
         from medane_tchakorom_ufc_thesis_repository_tpu.core.operators import (
             DIA,
-            as_tpu_operator,
+            as_device_operator,
         )
 
         ell = poisson.poisson2d_ell(8, 8, dtype=jnp.float64)
-        op = as_tpu_operator(ell)
+        op = as_device_operator(ell)
         assert isinstance(op, DIA)
         assert op.offsets == (-8, -1, 0, 1, 8)
 
@@ -206,7 +206,7 @@ class TestFormatConversion:
         from medane_tchakorom_ufc_thesis_repository_tpu.core import poisson
         from medane_tchakorom_ufc_thesis_repository_tpu.core.operators import (
             AIJ,
-            as_tpu_operator,
+            as_device_operator,
         )
 
         # random sparsity, every better route disabled (no DIA fit, BSR
@@ -220,7 +220,7 @@ class TestFormatConversion:
         vals = rng.standard_normal(pairs.shape[1])
         ell = poisson.coo_to_ell(pairs[0], pairs[1], vals, (n, n),
                                  dtype=jnp.float64)
-        out = as_tpu_operator(ell, max_diags=64, max_bsr_cost=0.0,
+        out = as_device_operator(ell, max_diags=64, max_bsr_cost=0.0,
                               bsr_block_sizes=(), max_dense_n=0)
         assert isinstance(out, AIJ)
         x = rng.standard_normal(n)
@@ -228,91 +228,3 @@ class TestFormatConversion:
             np.asarray(out.mv(jnp.asarray(x, jnp.float64))),
             np.asarray(ell.to_dense()) @ x, rtol=1e-10, atol=1e-10,
         )
-
-
-class TestSlabStencil:
-    """HBM-scale slab routing of Stencil3D.mv (512^3-class grids): the
-    slab formulation must be bit-identical to the whole-array pad+slice
-    form (it is the same arithmetic, restructured for slab-sized
-    fusions)."""
-
-    def test_slab_mv_matches_padslice(self):
-        import numpy as np
-
-        from medane_tchakorom_ufc_thesis_repository_tpu.core.operators import (
-            Stencil3D,
-        )
-
-        op = Stencil3D(16, 8, 8)
-        g = jnp.asarray(
-            np.random.default_rng(0).standard_normal((16, 8, 8))
-        )
-        ref = op.mv(g)                      # small: pad+slice path
-        for sl in (1, 2, 4, 8):
-            got = op._slab_mv(g, sl)
-            # halo-row adds associate differently: fp-roundoff only
-            np.testing.assert_allclose(
-                np.asarray(got), np.asarray(ref), rtol=0, atol=1e-13
-            )
-
-    def test_fused_smoother_and_residual_match_composition(self):
-        import numpy as np
-
-        from medane_tchakorom_ufc_thesis_repository_tpu.core import (
-            operators as om,
-        )
-
-        op = om.Stencil3D(16, 8, 8)
-        rng = np.random.default_rng(1)
-        x = jnp.asarray(rng.standard_normal((16, 8, 8)))
-        b = jnp.asarray(rng.standard_normal((16, 8, 8)))
-        w = 0.8 / 6.0
-        ref_sweep = x + w * (b - op.mv(x))
-        ref_resid = b - op.mv(x)
-        # composition path (below the slab cutoff)
-        np.testing.assert_array_equal(
-            np.asarray(op.jacobi_sweep(x, b, w)), np.asarray(ref_sweep)
-        )
-        np.testing.assert_array_equal(
-            np.asarray(op.residual(x, b)), np.asarray(ref_resid)
-        )
-        # slab path (same ys per slab; halo adds associate differently)
-        for sl in (2, 4):
-            got = op._slab_mv(
-                x, sl,
-                epilogue=lambda s, ys, bb: s + w * (bb - ys), extras=(b,)
-            )
-            np.testing.assert_allclose(
-                np.asarray(got), np.asarray(ref_sweep), rtol=0, atol=1e-13
-            )
-
-    def test_fused_smoother_slab_routing_engages(self, monkeypatch):
-        import numpy as np
-
-        from medane_tchakorom_ufc_thesis_repository_tpu.core import (
-            operators as om,
-        )
-
-        monkeypatch.setattr(om, "_VMEM_RESIDENT_BYTES", 1)
-        op = om.Stencil3D(16, 8, 8)
-        rng = np.random.default_rng(2)
-        x = jnp.asarray(rng.standard_normal((16, 8, 8)))
-        b = jnp.asarray(rng.standard_normal((16, 8, 8)))
-        w = 0.8 / 6.0
-        np.testing.assert_allclose(
-            np.asarray(op.jacobi_sweep(x, b, w)),
-            np.asarray(x + w * (b - om.Stencil3D(16, 8, 8).mv(x))),
-            rtol=0, atol=1e-13,
-        )
-
-    def test_slab_planes_heuristic(self):
-        from medane_tchakorom_ufc_thesis_repository_tpu.core.operators import (
-            _slab_planes,
-        )
-
-        # 512^3 f32: 1 MiB planes -> 32-plane slabs
-        assert _slab_planes(512, 512 * 512 * 4) == 32
-        # huge planes: falls back to single-plane slabs
-        assert _slab_planes(512, 64 * 2**20) == 1
-        # small grids: whole array in one slab
-        assert _slab_planes(64, 64 * 64 * 4) == 64

@@ -87,43 +87,9 @@ def test_cg_matvec_dot_identical_iterates(poisson_8x8):
     np.testing.assert_array_equal(np.asarray(plain.x), np.asarray(fused.x))
 
 
-def test_cg_matvec_axpy_dot_identical_iterates(poisson_8x8):
-    """``matvec_axpy_dot`` (Stencil3D.axpy_mv_dot's hook: the p-update
-    fused into the direction matvec) reproduces plain CG bit-for-bit
-    when the fused triple is computed the same way."""
-    op, dense, b, x_exact = poisson_8x8
-
-    def amvd(z, p, beta):
-        pn = z + beta * p
-        return pn, op.mv(pn), jnp.vdot(pn, op.mv(pn))
-
-    plain = cg(op.mv, b, maxiter=37, rtol=1e-12)
-    fused = cg(op.mv, b, maxiter=37, rtol=1e-12, matvec_axpy_dot=amvd)
-    assert int(plain.iters) == int(fused.iters)
-    np.testing.assert_array_equal(np.asarray(plain.x), np.asarray(fused.x))
-
-
-def test_stencil3d_axpy_mv_dot_triple():
-    """Stencil3D.axpy_mv_dot fallback matches the axpy + mv + vdot
-    composition (the Pallas kind is covered in tests/test_pallas.py)."""
-    from medane_tchakorom_ufc_thesis_repository_tpu.core import poisson as p3
-    op = p3.poisson3d(8, 8, 8)
-    rng = np.random.default_rng(4)
-    z = jnp.asarray(rng.standard_normal(512), jnp.float32)
-    p = jnp.asarray(rng.standard_normal(512), jnp.float32)
-    pn, ap, dot = op.axpy_mv_dot(z, p, jnp.float32(0.25))
-    pref = z + 0.25 * p
-    np.testing.assert_allclose(np.asarray(pn), np.asarray(pref), rtol=1e-6)
-    np.testing.assert_allclose(
-        np.asarray(ap), np.asarray(op.mv(pref)), rtol=1e-6)
-    np.testing.assert_allclose(
-        float(dot), float(jnp.vdot(pref, op.mv(pref))), rtol=1e-5)
-
-
 def test_stencil3d_mv_dot_pair():
     """Stencil3D.mv_dot returns (A x, x·Ax) consistent with mv + vdot
-    (the sub-VMEM fallback path; the Pallas kind is covered in
-    tests/test_pallas.py)."""
+    (``tests/test_plain_paths.py`` pins it against an f64 reference)."""
     from medane_tchakorom_ufc_thesis_repository_tpu.core import poisson as p3
     op = p3.poisson3d(8, 8, 8)
     x = jnp.asarray(np.random.default_rng(3).standard_normal(512), jnp.float32)
@@ -198,7 +164,7 @@ def test_direct_lstsq_batched():
 
 
 def test_gmres_f32_still_converges():
-    """TPU default dtype path: f32 GMRES to 1e-3 (the reference's default
+    """Device default dtype path: f32 GMRES to 1e-3 (the reference's default
     inner rtol, config/default_run_variables)."""
     m = n = 16
     op = Stencil2D(m=m, n=n)
@@ -325,7 +291,7 @@ class TestCaGmresSingleF32:
         """The one-collective CA cycle must stay finite and accurate in
         f32 at moderate s: capacity-scaled Newton columns keep the Gram
         in range (unscaled overflowed by s=10), and the Gram matmul runs
-        at precision='highest' (TPU default bf16 inputs NaN'd at s=6)."""
+        at precision='highest' (reduced-precision operands NaN'd at s=6)."""
         from medane_tchakorom_ufc_thesis_repository_tpu.core import poisson
         from medane_tchakorom_ufc_thesis_repository_tpu.solvers.castep import (
             ca_gmres,

@@ -28,7 +28,7 @@ def _setup(m=32, n=32):
 class TestTiledGmres:
     def test_matches_single_device_iterations(self, mesh222):
         """Whole-mesh GMRES on the 2-D-tiled mesh: identical iteration
-        counts to single-device GMRES (same math, torus layout)."""
+        counts to single-device GMRES (same math, 2-D tiled layout)."""
         from medane_tchakorom_ufc_thesis_repository_tpu.core import poisson
         from medane_tchakorom_ufc_thesis_repository_tpu.parallel import (
             tiled_gmres_solve,
